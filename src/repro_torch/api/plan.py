@@ -1,0 +1,152 @@
+"""Declarative measurement plans: cross-products of probes, with dedupe.
+
+A :class:`Plan` is an ordered, duplicate-free tuple of probes; builders make
+the paper's sweeps, ``+`` composes plans and ``filter`` trims them. The
+algebra and the ``quick`` plan are those of ``repro.api.plan``, so both
+packages give the same ordered logical keys. The other named plans of the
+JAX package are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterable, Iterator, Sequence
+
+from repro_torch.api.probes import (ClockOverheadProbe, InstructionProbe,
+                                    KernelProbe, MemoryProbe, Probe)
+from repro_torch.core import chains
+from repro_torch.core.chains import OpSpec
+from repro_torch.core.optlevels import OPT_LEVELS
+
+# The CLI/CI keep-set: one representative per interesting latency class,
+# including the divisor-taxonomy splits the paper highlights.
+QUICK_OPS = ("add", "mul", "mad", "div.s.regular", "div.s.irregular",
+             "div.s.runtime", "fma.float32", "div.runtime.float32", "sqrt",
+             "rsqrt", "sin", "ex2", "popc", "clz", "add.bfloat16")
+
+# The JAX package's plan names; only PORTED_PLANS run here.
+PLAN_NAMES = ("quick", "table2", "memory", "inkernel", "memory-inkernel",
+              "fused", "serving", "collectives", "serving-sharded", "slo",
+              "full")
+PORTED_PLANS = ("quick",)
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    probes: tuple[Probe, ...] = ()
+    name: str = "plan"
+
+    # ------------------------------------------------------------- algebra
+    def __add__(self, other: "Plan") -> "Plan":
+        return Plan(_dedupe(self.probes + other.probes),
+                    name=_compose_name(self.name, other.name))
+
+    def __len__(self) -> int:
+        return len(self.probes)
+
+    def __iter__(self) -> Iterator[Probe]:
+        return iter(self.probes)
+
+    def dedupe(self) -> "Plan":
+        return dataclasses.replace(self, probes=_dedupe(self.probes))
+
+    def filter(self, ops: Iterable[str] | None = None,
+               opt_levels: Iterable[str] | None = None,
+               categories: Iterable[str] | None = None) -> "Plan":
+        """Keep only probes matching every given axis (None = keep all); the
+        op axis matches any of a probe's :meth:`Probe.match_names`."""
+        ops = set(ops) if ops is not None else None
+        opt_levels = set(opt_levels) if opt_levels is not None else None
+        categories = set(categories) if categories is not None else None
+        kept = tuple(
+            p for p in self.probes
+            if (ops is None or not ops.isdisjoint(p.match_names()))
+            and (opt_levels is None or p.opt_level in opt_levels)
+            and (categories is None or p.category in categories))
+        return dataclasses.replace(self, probes=kept)
+
+    # ------------------------------------------------------------ builders
+    @staticmethod
+    def instructions(registry: Sequence[OpSpec] | None = None,
+                     opt_levels: Sequence[str] = ("O0", "O3"),
+                     ops: Iterable[str] | None = None,
+                     dtypes: Iterable[str] | None = None,
+                     categories: Iterable[str] | None = None) -> "Plan":
+        """Registry x opt-level cross-product (paper Table II)."""
+        registry = list(registry if registry is not None
+                        else chains.default_registry())
+        if ops is not None:
+            keep = set(ops)
+            registry = [o for o in registry if o.name in keep]
+        if dtypes is not None:
+            keep = set(dtypes)
+            registry = [o for o in registry if o.dtype in keep]
+        if categories is not None:
+            keep = set(categories)
+            registry = [o for o in registry if o.category in keep]
+        probes = tuple(InstructionProbe(spec, lv)
+                       for spec in registry for lv in opt_levels)
+        return Plan(_dedupe(probes), name="instructions")
+
+    @staticmethod
+    def clock_overhead(opt_levels: Sequence[str] = OPT_LEVELS) -> "Plan":
+        return Plan(tuple(ClockOverheadProbe(lv) for lv in opt_levels),
+                    name="clock_overhead")
+
+    @staticmethod
+    def memory(working_sets: Sequence[int] | None = None,
+               steps: tuple[int, int] = (2048, 6144)) -> "Plan":
+        """Pointer-chase ladder over working-set sizes (paper Fig. 6)."""
+        if working_sets is None:
+            working_sets = [1 << k for k in range(12, 26)]  # 4 KiB .. 32 MiB
+        return Plan(tuple(MemoryProbe(ws, steps=steps) for ws in working_sets),
+                    name="memory")
+
+    @staticmethod
+    def kernels(kernel_ops: Sequence[str] = ("fma",),
+                lens: tuple[int, int] = (8, 64)) -> "Plan":
+        return Plan(tuple(KernelProbe(op, lens=lens) for op in kernel_ops),
+                    name="kernels")
+
+
+def _compose_name(a: str, b: str, max_parts: int = 3) -> str:
+    """Name for ``a + b``: deduped '+'-join, capped (``a+b+c+2more``)."""
+    parts: list[str] = []
+    overflow = 0
+    for part in (*a.split("+"), *b.split("+")):
+        if part.endswith("more") and part[:-4].isdigit():
+            overflow += int(part[:-4])
+        elif part and part not in parts:
+            parts.append(part)
+    if len(parts) > max_parts:
+        overflow += len(parts) - max_parts
+        parts = parts[:max_parts]
+    if overflow:
+        parts.append(f"{overflow}more")
+    return "+".join(parts) or "plan"
+
+
+def _dedupe(probes: Sequence[Probe]) -> tuple[Probe, ...]:
+    seen: set[tuple] = set()
+    out: list[Probe] = []
+    for p in probes:
+        k = p.logical_key()
+        if k in seen:
+            continue
+        seen.add(k)
+        out.append(p)
+    return tuple(out)
+
+
+def named_plan(name: str) -> Plan:
+    """The CLI's plan registry (only ``quick`` is ported so far)."""
+    if name == "quick":
+        plan = (Plan.clock_overhead(("O0", "O3"))
+                + Plan.instructions(ops=QUICK_OPS, opt_levels=("O0", "O3"))
+                + Plan.memory((1 << 13, 1 << 17, 1 << 21), steps=(512, 1536))
+                + Plan.kernels(("fma",)))
+    elif name in PLAN_NAMES:
+        raise ValueError(f"plan {name!r} is not ported yet; ported plans: "
+                         f"{PORTED_PLANS} (see ROADMAP.md)")
+    else:
+        raise ValueError(f"unknown plan {name!r}; choose from {PORTED_PLANS}")
+    return dataclasses.replace(plan, name=name)

@@ -1,0 +1,279 @@
+"""Probe types: the unit of work a :class:`repro_torch.api.Session` schedules.
+
+A probe is one measurement with a stable identity, the
+``(device_kind, backend, jax_version, opt_level, op, dtype)`` tuple of a
+:class:`LatencyRecord` key: a probe whose key is already in the DB is a
+cache hit and is not run again (unless forced). Row names and logical keys
+are those of ``repro.api.probes``, so a plan yields the same keys in both
+packages.
+
+* :class:`InstructionProbe` — one :class:`OpSpec` at one opt level via the
+  dependent-chain slope (paper Table II).
+* :class:`MemoryProbe` — the pointer chase at one working-set size (Fig. 6).
+* :class:`ClockOverheadProbe` — the cost of the timed region itself (Fig. 5).
+* :class:`KernelProbe` — the in-kernel dependent ALU chain (the paper's
+  timed PTX block), through the ``alu_chain`` kernel.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Mapping
+
+import torch
+
+from repro_torch.core import measure, membench
+from repro_torch.core.chains import KERNEL_CHAIN_UNROLL, OpSpec
+from repro_torch.core.latency_db import LatencyRecord
+from repro_torch.core.optlevels import compile_at_level
+from repro_torch.core.timing import Measurement, Timer
+from repro_torch.kernels.alu_chain import alu_chain
+from repro_torch.utils import timestamp
+
+
+@dataclasses.dataclass(frozen=True)
+class ProbeContext:
+    """Session-owned machinery handed to every probe run."""
+
+    timer: Timer
+    env: Mapping[str, str]              # device_kind / backend / jax_version
+    clock_hz: float
+    baseline_ns: Callable[[str], float]  # per-level 1-cycle-class baseline
+    kernel_baseline_ns: Callable[[], float]  # the same, inside op_chain
+    device: torch.device
+    adaptive: bool = False               # adaptive fidelity on: effective rep
+                                         # counts ride in record notes
+
+
+class Probe:
+    """One schedulable measurement. Subclasses set identity + implement run.
+
+    Attributes
+    ----------
+    op: table row name (e.g. ``"fma.float32"``, ``"mem.chase.ws8192"``).
+    opt_level: compilation level the probe measures under.
+    dtype: dtype axis of the record key.
+    category: table grouping.
+
+    A probe implements :meth:`run`, or the split the session uses:
+    :meth:`prepare` does everything compile-bound, :meth:`run_prepared` the
+    timing, and :meth:`warm_tasks` names compiles a worker process can do
+    ahead of both. The defaults route a probe that only implements
+    :meth:`run` through the split.
+    """
+
+    op: str = ""
+    opt_level: str = "O3"
+    dtype: str = "float32"
+    category: str = "uncategorized"
+
+    def logical_key(self) -> tuple[str, str, str]:
+        """Environment-independent identity, used for plan dedupe."""
+        return (self.op, self.opt_level, self.dtype)
+
+    def match_names(self) -> frozenset[str]:
+        """Every name an op filter may address this probe by."""
+        return frozenset((self.op,))
+
+    def key(self, env: Mapping[str, str]) -> tuple:
+        """Full cache key; identical layout to ``LatencyRecord.key()``."""
+        return (env["device_kind"], env["backend"], env["jax_version"],
+                self.opt_level, self.op, self.dtype)
+
+    def run(self, ctx: ProbeContext) -> LatencyRecord:
+        raise NotImplementedError
+
+    def prepare(self, ctx: ProbeContext) -> Any:
+        """Compile-bound half; None makes :meth:`run_prepared` call
+        :meth:`run`."""
+        return None
+
+    def run_prepared(self, ctx: ProbeContext, prepared: Any) -> LatencyRecord:
+        """Device-bound half: time what ``prepare`` built."""
+        return self.run(ctx)
+
+    def warm_tasks(self, ctx: ProbeContext) -> list[tuple[Callable, tuple]]:
+        """``(function, args)`` pairs a worker process may run to fill the
+        compile caches before :meth:`prepare` runs; picklable."""
+        return []
+
+    # ------------------------------------------------------------------ util
+    def _record(self, ctx: ProbeContext, m: Measurement, *, guard: int = 0,
+                notes: str = "", baseline: float | None = None) -> LatencyRecord:
+        """Build the result record from a Measurement, netting out guards.
+
+        ``baseline`` overrides the session's dispatch-level add baseline for
+        probes whose guard ops run under another methodology (in-kernel).
+        The notes end with the clock that timed the row; a slope taken at
+        the widened retry's lengths says so (``retry_lens=n1-n2``).
+        """
+        extra = []
+        if ctx.adaptive:
+            extra.append(f"reps_eff={m.n}")
+        if m.retry_lens is not None:
+            extra.append(f"retry_lens={m.retry_lens[0]}-{m.retry_lens[1]}")
+        ns = max(m.median_ns, 0.0)
+        base = (baseline if baseline is not None else ctx.baseline_ns(self.opt_level)) \
+            if guard else 0.0
+        net = ns - guard * base
+        if net < 0.0:  # flag the clamp below: a wrong guard count or baseline
+            extra.append("clamped=1")
+        extra.append(f"clock={ctx.timer.clock}")
+        return LatencyRecord(
+            op=self.op, category=self.category, dtype=self.dtype,
+            opt_level=self.opt_level, latency_ns=ns, mad_ns=m.mad_ns,
+            cycles=ns * ctx.clock_hz / 1e9, guard=guard,
+            net_latency_ns=max(net, 0.0), n_samples=m.n,
+            measured_at=timestamp(), notes=" ".join([notes, *extra]).strip(),
+            **ctx.env)
+
+    def __repr__(self) -> str:
+        return f"{type(self).__name__}({self.op}@{self.opt_level})"
+
+
+class InstructionProbe(Probe):
+    """One registry OpSpec at one opt level (paper Table II row x column)."""
+
+    def __init__(self, spec: OpSpec, opt_level: str = "O3"):
+        self.spec = spec
+        self.op = spec.name
+        self.opt_level = opt_level
+        self.dtype = spec.dtype
+        self.category = spec.category
+
+    def prepare(self, ctx: ProbeContext):
+        return measure.prepare_op(self.spec, self.opt_level, ctx.device)
+
+    def warm_tasks(self, ctx: ProbeContext) -> list[tuple[Callable, tuple]]:
+        if self.opt_level != "O3" or self.spec.kernel is not None:
+            return []
+        return [(measure.warm_chain, (self.spec.name, self.opt_level, n, str(ctx.device)))
+                for n in reversed(measure._CHAIN_LENS[self.opt_level])]  # longest first
+
+    def run_prepared(self, ctx: ProbeContext, prepared) -> LatencyRecord:
+        m = measure.run_prepared_op(prepared, ctx.timer)
+        if self.spec.kernel is None:
+            return self._record(ctx, m, guard=self.spec.guard, notes=self.spec.notes)
+        # the guard runs inside the same launch: net it with the in-kernel
+        # baseline, never with an eager dispatch
+        launch = ("per-step" if self.opt_level == "O0" else
+                  f"per-chain unroll={KERNEL_CHAIN_UNROLL}")
+        notes = " ".join(filter(None, (
+            self.spec.notes, f"kernel=op_chain.{self.spec.kernel}",
+            f"launch={launch}", "guard_base=op_chain.add")))
+        return self._record(ctx, m, guard=self.spec.guard, notes=notes,
+                            baseline=ctx.kernel_baseline_ns() if self.spec.guard else None)
+
+
+class ClockOverheadProbe(Probe):
+    """Cost of the timed region itself at one opt level (paper Fig. 5)."""
+
+    category = "overhead"
+
+    def __init__(self, opt_level: str = "O3"):
+        self.op = "clock_overhead"
+        self.opt_level = opt_level
+
+    def prepare(self, ctx: ProbeContext):
+        x = torch.ones((), dtype=torch.float32, device=ctx.device)
+        fn = compile_at_level(lambda v: v, self.opt_level, name="clock_overhead_null")
+        measure._first_call(fn, x)
+        return (fn, x)
+
+    def run_prepared(self, ctx: ProbeContext, prepared) -> LatencyRecord:
+        fn, x = prepared
+        m = ctx.timer.time_callable(fn, x, reps=measure._REPS[self.opt_level])
+        return self._record(ctx, m, notes="null timed region (Fig. 5 analog)")
+
+
+class MemoryProbe(Probe):
+    """Dependent pointer chase at one working-set size (paper Fig. 6 point),
+    one ``chase`` kernel launch per timed chase.
+
+    Non-default chase parameters are part of the op name (and therefore the
+    cache key): a short-chase point never satisfies a lookup for the
+    standard sweep.
+    """
+
+    category = "memory"
+    dtype = "int32"
+    DEFAULT_STEPS = (2048, 6144)
+    DEFAULT_LINE_BYTES = 64
+
+    def __init__(self, working_set_bytes: int,
+                 line_bytes: int = DEFAULT_LINE_BYTES,
+                 steps: tuple[int, int] = DEFAULT_STEPS):
+        self.working_set_bytes = int(working_set_bytes)
+        self.line_bytes = line_bytes
+        self.steps = tuple(steps)
+        self.base_op = f"mem.chase.ws{self.working_set_bytes}"
+        self.op = self.base_op
+        if self.steps != self.DEFAULT_STEPS:
+            self.op += f".s{self.steps[0]}-{self.steps[1]}"
+        if self.line_bytes != self.DEFAULT_LINE_BYTES:
+            self.op += f".line{self.line_bytes}"
+
+    def match_names(self) -> frozenset[str]:
+        # "mem" is the whole-family base row: ``--ops mem`` keeps every rung
+        return frozenset((self.op, self.base_op, "mem"))
+
+    def prepare(self, ctx: ProbeContext):
+        return membench.prepare_chase(self.working_set_bytes,
+                                      line_bytes=self.line_bytes,
+                                      steps=self.steps, device=ctx.device)
+
+    def run_prepared(self, ctx: ProbeContext, prepared) -> LatencyRecord:
+        pt = membench.run_prepared_chase(prepared, ctx.timer)
+        m = Measurement(median_ns=pt.latency_ns, mad_ns=0.0,
+                        min_ns=pt.latency_ns, n=ctx.timer.reps)
+        return self._record(
+            ctx, m, notes=f"cold_ns={pt.cold_latency_ns:.3f} "
+                          f"stride={pt.stride_bytes}")
+
+
+class KernelProbe(Probe):
+    """In-kernel dependent ALU chain, slope-timed.
+
+    The paper's timed PTX block: the whole ``alu_chain`` kernel is the timed
+    region and the two-length slope cancels the launch overhead.
+    """
+
+    category = "kernel"
+    DEFAULT_LENS = (8, 64)
+    DEFAULT_SHAPE = (8, 128)
+
+    def __init__(self, kernel_op: str = "fma",
+                 lens: tuple[int, int] = DEFAULT_LENS,
+                 shape: tuple[int, int] = DEFAULT_SHAPE, reps: int = 5):
+        self.kernel_op = kernel_op
+        self.lens = tuple(lens)
+        self.shape = tuple(shape)
+        self.reps = reps
+        # non-default chain lengths / tile are a different experiment: part
+        # of the cache identity, like MemoryProbe.steps
+        self.base_op = f"kernel.alu_chain.{kernel_op}"
+        self.op = self.base_op
+        if self.lens != self.DEFAULT_LENS:
+            self.op += f".l{self.lens[0]}-{self.lens[1]}"
+        if self.shape != self.DEFAULT_SHAPE:
+            self.op += f".t{self.shape[0]}x{self.shape[1]}"
+
+    def match_names(self) -> frozenset[str]:
+        return frozenset((self.op, self.base_op, self.kernel_op))
+
+    def prepare(self, ctx: ProbeContext):
+        x = torch.full(self.shape, 1.0, dtype=torch.float32, device=ctx.device)
+        a = torch.full(self.shape, 0.5, dtype=torch.float32, device=ctx.device)
+
+        def fn_by_len(n: int):
+            return lambda x, a: alu_chain(x, a, n=n, op=self.kernel_op)
+
+        for n in self.lens:  # the first launch builds and loads the kernel
+            measure._first_call(fn_by_len(n), x, a)
+        return (fn_by_len, x, a)
+
+    def run_prepared(self, ctx: ProbeContext, prepared) -> LatencyRecord:
+        fn_by_len, x, a = prepared
+        m = ctx.timer.slope(fn_by_len, *self.lens, x, a, reps=self.reps)
+        route = "cuda" if ctx.device.type == "cuda" else "plain"
+        return self._record(
+            ctx, m, notes=f"{route} alu_chain tile={self.shape} lens={self.lens}")

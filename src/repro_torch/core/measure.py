@@ -1,0 +1,144 @@
+"""Per-op measurement (the paper's Section IV): the two-length slope.
+
+The measurement is split in two, as in the JAX package:
+
+* :func:`prepare_op` does everything compile-bound: builds the chain
+  callables at both lengths and runs each once, which is when
+  ``torch.compile`` compiles (and when the CUDA kernels are built and
+  loaded); no timing;
+* :func:`run_prepared_op` does everything device-bound: the two-length
+  :meth:`Timer.slope` over the prepared callables.
+
+The split lets the session's compile-ahead thread prepare probe N+1 while
+probe N times. :func:`warm_chain` is the same compile run in a worker
+process, which fills Inductor's on-disk cache so the in-process compile of
+the same chain is a cache load.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.core import chains
+from repro_torch.core.chains import OpSpec, chain_fn, kernel_chain_fn
+from repro_torch.core.optlevels import compile_at_level
+from repro_torch.core.timing import Measurement, Timer
+from repro_torch.kernels.common import resolve_device
+from repro_torch.utils import block, logger
+
+# Chain lengths per opt level: eager dispatch costs microseconds per op, so
+# O0 uses short chains; long O3 chains push the per-op signal well above the
+# clock's noise. The slope uses min statistics (noise floor).
+_CHAIN_LENS = {"O0": (2, 10), "O3": (64, 512)}
+_REPS = {"O0": 5, "O3": 30}
+
+# Widened-spread retry factor when a slope comes out non-positive: the new
+# upper length is n1 + _RETRY_WIDEN * (n2 - n1), capped at the spec's
+# max_chain (see Timer.slope).
+_RETRY_WIDEN = 4
+
+
+def retry_lens_for(spec: OpSpec, n1: int, n2: int) -> tuple[int, int]:
+    """Capped widened chain spread for the noisy-slope retry; returns the
+    original ``(n1, n2)`` (which disables the retry) when ``max_chain``
+    leaves no room to widen."""
+    widened = n1 + _RETRY_WIDEN * (n2 - n1)
+    if spec.max_chain is not None:
+        widened = min(widened, spec.max_chain)
+    return (n1, widened) if widened > n2 else (n1, n2)
+
+
+def compile_chain(spec: OpSpec, n: int, opt_level: str) -> Callable[..., Any]:
+    """One chain callable of length ``n`` at ``opt_level``.
+
+    Rows with an ``op_chain`` step launch the kernel once per step at O0 and
+    once for the whole chain at O3; every other row is eager at O0 and
+    ``torch.compile``\\ d at O3 (compiled at its first call).
+    """
+    if spec.kernel is not None:
+        if opt_level == "O0":
+            return chain_fn(spec, n)
+        if opt_level == "O3":
+            return kernel_chain_fn(spec, n)
+        raise NotImplementedError(f"opt level {opt_level} is not ported yet")
+    name = "chain_" + "".join(c if c.isalnum() else "_" for c in spec.name) + f"_{n}"
+    return compile_at_level(chain_fn(spec, n), opt_level, name=name)
+
+
+def _first_call(fn: Callable[..., Any], *args: Any) -> None:
+    """Run ``fn`` once, so that it compiles or builds now, and wait for it."""
+    block(fn(*args))
+
+
+@dataclasses.dataclass
+class PreparedOp:
+    """Everything :func:`run_prepared_op` needs; produced off the timing
+    thread by :func:`prepare_op`."""
+
+    spec: OpSpec
+    opt_level: str
+    lens: tuple[int, int]
+    retry_lens: tuple[int, int]
+    reps: int
+    carry: torch.Tensor
+    operands: tuple
+    device: torch.device
+    _fns: dict[int, Callable]
+
+    def fn_by_len(self, n: int) -> Callable:
+        """Memoized chain callable, compiled at first use (the widened retry
+        length compiles lazily)."""
+        if n not in self._fns:
+            t0 = time.perf_counter()
+            fn = compile_chain(self.spec, n, self.opt_level)
+            _first_call(fn, self.carry, *self.operands)
+            logger.debug("compiled %s@%s n=%d in %.2f s", self.spec.name,
+                         self.opt_level, n, time.perf_counter() - t0)
+            self._fns[n] = fn
+        return self._fns[n]
+
+
+def prepare_op(spec: OpSpec, opt_level: str = "O3",
+               device: str | torch.device | None = None) -> PreparedOp:
+    """Build and compile the two chain callables for ``spec`` on ``device``
+    (default ``cuda:0``, see ``resolve_device``); no timing."""
+    device = resolve_device(device)
+    n1, n2 = _CHAIN_LENS[opt_level]
+    if spec.max_chain is not None:
+        n1, n2 = min(n1, spec.max_chain // 3), min(n2, spec.max_chain)
+    prepared = PreparedOp(spec=spec, opt_level=opt_level, lens=(n1, n2),
+                          retry_lens=retry_lens_for(spec, n1, n2),
+                          reps=_REPS[opt_level], carry=spec.carry(device),
+                          operands=spec.operand_tensors(device), device=device,
+                          _fns={})
+    prepared.fn_by_len(n1)
+    prepared.fn_by_len(n2)
+    return prepared
+
+
+def run_prepared_op(prepared: PreparedOp, timer: Timer) -> Measurement:
+    """Time a :class:`PreparedOp`: the device-serial half of the split."""
+    return timer.slope(prepared.fn_by_len, *prepared.lens,
+                       prepared.carry, *prepared.operands,
+                       reps=prepared.reps, retry_lens=prepared.retry_lens)
+
+
+def measure_op(spec: OpSpec, opt_level: str, timer: Timer) -> float:
+    """Per-op latency in ns at ``opt_level`` on the timer's device: the serial
+    form of the split, ``run_prepared_op(prepare_op(...))``."""
+    m = run_prepared_op(prepare_op(spec, opt_level, timer.device), timer)
+    return max(m.median_ns, 0.0)
+
+
+def warm_chain(name: str, opt_level: str, n: int, device: str) -> float:
+    """Compile the chain of registry row ``name`` at length ``n`` in this
+    process and run it once; returns the seconds it took. A worker process
+    runs this to fill Inductor's on-disk cache ahead of the session."""
+    t0 = time.perf_counter()
+    spec = chains.spec_by_name(name)
+    fn = compile_chain(spec, n, opt_level)
+    block(fn(spec.carry(device), *spec.operand_tensors(device)))
+    return time.perf_counter() - t0

@@ -1,0 +1,55 @@
+"""Device policy and the input checks every kernel wrapper shares.
+
+There is no interpret mode: a kernel runs on the card, and its plain PyTorch
+version runs only for tensors that lie on the CPU. Nothing here falls back
+from the card to the CPU: asking for CUDA where there is none raises.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device | None = None) -> torch.device:
+    """The device an entry point runs on: ``cuda:0`` unless the caller names
+    another. Raises when CUDA is asked for and this process has none."""
+    dev = torch.device("cuda:0" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {dev} was requested but no CUDA device is available "
+                "(torch.cuda.is_available() is False); pass device='cpu' "
+                "(CLI: --device cpu) to run on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}; use 'cuda[:N]' or 'cpu'")
+    return dev
+
+
+def check_tensors(kernel: str, dtype: torch.dtype, shape: tuple[int, ...] | None,
+                  **tensors: torch.Tensor) -> torch.device:
+    """Raise unless every tensor has ``dtype``, ``shape`` (when given), is
+    contiguous and lies on one device; returns that device."""
+    devices = set()
+    for name, t in tensors.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{kernel}: {name} must be a tensor, got {type(t).__name__}")
+        if t.dtype != dtype:
+            raise TypeError(f"{kernel}: {name} must be {dtype}, got {t.dtype}")
+        if shape is not None and tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{kernel}: {name} must have shape {tuple(shape)}, "
+                             f"got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be contiguous")
+        devices.add(t.device)
+    if len(devices) != 1:
+        raise ValueError(f"{kernel}: inputs must lie on one device, got {sorted(map(str, devices))}")
+    (device,) = devices
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{kernel}: unsupported device {device}")
+    return device
+
+
+def stream_handle(device: torch.device) -> int:
+    """The raw ``cudaStream_t`` of PyTorch's current stream on ``device``."""
+    return torch.cuda.current_stream(device).cuda_stream
