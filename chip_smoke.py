@@ -7,19 +7,32 @@ Run from the root of a checkout on a machine with one CUDA card and nvcc:
 
 Phases, each of which must pass:
 
-1. build the CUDA kernels from ``src/repro_torch/csrc`` (into ``build/``);
-2. hold each kernel against its plain PyTorch version on the card, at the
-   quick plan's shapes and one larger shape: alu_chain within rtol 1e-5,
-   op_chain and chase bit-exact;
+1. build the CUDA kernels from ``src/repro_torch/csrc`` (into ``build/``),
+   one nvcc per source, all at once, and print ptxas's register and spill
+   lines;
+2. hold each kernel against its plain PyTorch version on the card: K1-K3 at
+   the quick plan's shapes and one larger shape (alu_chain within rtol
+   1e-5, op_chain and chase bit-exact); K4-K7 at the fused plan's unit
+   workloads and at the widths of Jamba-v0.1 52B (d_model 4096, 32 heads,
+   8 KV heads, head dim 128, Mamba Dm 8192, N 16, chunk 64), every element
+   within ``tol * (|want| + rms(want's row))``, tol 2^-7 in bfloat16 (one
+   rounding of the output) and 2^-13 in float32; a control that
+   accumulates p . v in bfloat16 must fail that limit for K5 and K6;
 3. run ``characterize --plan quick`` through the port's CLI, with every
    kernel's launch count set to 0 just before and read just after; the run
-   must measure every row of the plan, with no failure, and launch every
-   kernel;
-4. time each kernel, its plain version and its bound at the shapes the quick
-   plan gives it, count non-positive slopes of the host clock and of CUDA
-   events over repeated trials, and time op_chain's loop: each step's time
-   with 1 and with 32 steps to an iteration;
-5. print the ``{"kernels": [...]}`` line, the card's name and power limit,
+   must measure every row of the plan, with no failure, and launch K1-K3;
+4. the same for ``characterize --plan fused``: it must launch K4-K7 and
+   measure the flash_attention, flash_decode and mamba_scan rows; the
+   rmsnorm row may end as a NoisySlopeError failure (its row blocks run in
+   parallel, so its slope is near the clock's resolution), and the script
+   prints which;
+5. time each kernel, its plain version, its bound and, where one PyTorch
+   call computes the same function, that call, at the shapes the main
+   paths give it (K4-K7 also at the Jamba shapes); count non-positive
+   slopes of the host clock and of CUDA events over repeated trials, and
+   time op_chain's loop: each step's time with 1 and with 32 steps to an
+   iteration;
+6. print the ``{"kernels": [...]}`` line, the card's name and power limit,
    and, last, ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when no CUDA card is visible or the
@@ -44,7 +57,14 @@ sys.path.insert(0, str(ROOT / "src"))
 # Published peaks of one H100 SXM (NVIDIA's data sheet, at the 700 W limit):
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12     # non-tensor float32; also used for int32 ops
+BF16_OPS_PER_S = 989e12    # dense bf16 on the tensor cores
 ALU_RTOL = 1e-5
+# Row-scaled limits for K4-K7 on the card: |got - want| <= tol * (|want| +
+# rms(want's row)). bf16: one rounding of the output (half an ulp is 2^-9
+# of the value, two roundings of nearby values differ by up to 2^-7).
+# float32: 2^-13, below TF32's 2^-11, so a product taken in TF32 fails it.
+ROW_TOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 2.0 ** -13}
+QUICK_KERNELS = ("alu_chain", "op_chain", "chase")
 
 
 def fail(msg: str) -> None:
@@ -118,6 +138,188 @@ def check_kernels(dev: torch.device) -> dict[str, float]:
     print("K3 chase: ws 8 KiB, 128 KiB, 2 MiB, 32 MiB x steps (512, 1536) bit-exact")
     return err
 
+def row_scaled_ratio(got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
+    """The largest |got - want| / (tol * (|want| + rms(want's row))), a row
+    being the last dimension; an element whose limit is 0 (an all-zero
+    row) must match exactly. Above 1 the comparison fails."""
+    g, w = got.float(), want.float()
+    limit = tol * (w.abs() + w.pow(2).mean(dim=-1, keepdim=True).sqrt())
+    err = (g - w).abs()
+    ratio = torch.where(limit > 0, err / limit.clamp_min(1e-38),
+                        torch.where(err > 0, math.inf, 0.0))
+    return float(ratio.max())
+
+
+def hold(label: str, got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """Hold a kernel's output against its plain version under the
+    row-scaled limit of its dtype; returns (max abs err, worst err/limit)."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{label}: got {got.dtype} {tuple(got.shape)}, plain version gives "
+             f"{want.dtype} {tuple(want.shape)}")
+    if not torch.isfinite(got).all():
+        fail(f"{label}: non-finite output")
+    tol = ROW_TOL[want.dtype]
+    ratio = row_scaled_ratio(got, want, tol)
+    err = float((got.float() - want.float()).abs().max())
+    print(f"  {label}: max abs err {err:.3g}, limit {tol:.3g} * (|want| + rms(row)), "
+          f"worst err/limit {ratio:.3f}")
+    if ratio > 1.0:
+        fail(f"{label}: disagrees with the plain version ({ratio:.3f} x the limit)")
+    return err, ratio
+
+
+def attention_bf16_acc(q, k, v, *, causal: bool):
+    """Control: flash_attention_plain with p . v accumulated key by key in
+    bfloat16 (each product and each running sum rounded), l in float32."""
+    from repro_torch.kernels.common import NEG_INF
+
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    s = torch.einsum("bqkgd,bskd->bkgqs", q.float().reshape(b, sq, kh, h // kh, d)
+                     * d ** -0.5, k.float())
+    if causal:
+        mask = (torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+                >= torch.arange(sk, device=q.device)[None, :])
+        s = s.masked_fill(~mask, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    if causal:
+        p = p.masked_fill(~mask, 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    pb, vb = p.bfloat16(), v.bfloat16()
+    acc = torch.zeros(*p.shape[:-1], d, dtype=torch.bfloat16, device=q.device)
+    for j in range(sk):
+        acc = acc + pb[..., j, None] * vb[:, j, :, None, None, :]
+    out = acc.float() / l.clamp_min(1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+
+
+def decode_bf16_acc(q, k, v, kv_len):
+    """Control: flash_decode_plain with p . v accumulated key by key in
+    bfloat16, l in float32."""
+    from repro_torch.kernels.common import NEG_INF
+
+    b, h, d = q.shape
+    s, kh = k.shape[1], k.shape[2]
+    logits = torch.einsum("bkgd,bskd->bkgs", q.float().reshape(b, kh, h // kh, d)
+                          * d ** -0.5, k.float())
+    valid = (torch.arange(s, device=q.device)[None, :]
+             < kv_len.long()[:, None])[:, None, None, :]
+    logits = logits.masked_fill(~valid, NEG_INF)
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True)).masked_fill(~valid, 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    pb, vb = p.bfloat16(), v.bfloat16()
+    acc = torch.zeros(b, kh, h // kh, d, dtype=torch.bfloat16, device=q.device)
+    for j in range(s):
+        acc = acc + pb[..., j, None] * vb[:, j, :, None, :]
+    return (acc.float() / l.clamp_min(1e-30)).reshape(b, h, d).to(q.dtype)
+
+
+def jamba_inputs(dev: torch.device) -> dict[str, tuple]:
+    """Seeded inputs at the widths of Jamba-v0.1 52B
+    (src/repro/configs/jamba_v0_1_52b.py): the args of each case, as the
+    wrapper takes them, plus its keywords."""
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
+
+    bf16 = torch.bfloat16
+    kv_len = torch.tensor([8192, 8191, 4097, 4096, 1000, 129, 1, 0], dtype=torch.int32,
+                          device=dev)
+    return {
+        "rmsnorm bf16 x[2048,4096]": (
+            "rmsnorm", (randn(2048, 4096, dtype=bf16),
+                        (1.0 + randn(4096, scale=0.1)).to(bf16)), {}),
+        "flash_attention bf16 causal q[1,2048,32,128] kv[1,2048,8,128]": (
+            "flash_attention", (randn(1, 2048, 32, 128, dtype=bf16),
+                                randn(1, 2048, 8, 128, dtype=bf16),
+                                randn(1, 2048, 8, 128, dtype=bf16)), {"causal": True}),
+        "flash_attention f32 causal q[1,2048,32,128] kv[1,2048,8,128]": (
+            "flash_attention", (randn(1, 2048, 32, 128), randn(1, 2048, 8, 128),
+                                randn(1, 2048, 8, 128)), {"causal": True}),
+        "flash_attention bf16 causal prefix q[1,512,32,128] kv[1,2048,8,128]": (
+            "flash_attention", (randn(1, 512, 32, 128, dtype=bf16),
+                                randn(1, 2048, 8, 128, dtype=bf16),
+                                randn(1, 2048, 8, 128, dtype=bf16)), {"causal": True}),
+        "flash_decode bf16 q[8,32,128] kv[8,8192,8,128] kv_len "
+        "(8192,8191,4097,4096,1000,129,1,0)": (
+            "flash_decode", (randn(8, 32, 128, dtype=bf16),
+                             randn(8, 8192, 8, 128, dtype=bf16),
+                             randn(8, 8192, 8, 128, dtype=bf16), kv_len), {}),
+        "mamba_scan f32 x,dt[1,2048,8192] N 16 chunk 64": (
+            "mamba_scan", (randn(1, 2048, 8192, scale=0.5), randn(1, 2048, 8192, scale=0.1),
+                           -torch.exp(randn(8192, 16, scale=0.3)),
+                           randn(1, 2048, 16, scale=0.5), randn(1, 2048, 16, scale=0.5),
+                           randn(8192, scale=0.1)), {"chunk": 64}),
+    }
+
+
+# The case of each fused kernel that chip_smoke times at Jamba widths.
+JAMBA_TIMED = {
+    "rmsnorm": "rmsnorm bf16 x[2048,4096]",
+    "flash_attention": "flash_attention bf16 causal q[1,2048,32,128] kv[1,2048,8,128]",
+    "flash_decode": "flash_decode bf16 q[8,32,128] kv[8,8192,8,128] kv_len "
+                    "(8192,8191,4097,4096,1000,129,1,0)",
+    "mamba_scan": "mamba_scan f32 x,dt[1,2048,8192] N 16 chunk 64",
+}
+
+
+def fused_modules() -> dict:
+    from repro_torch.kernels import flash_attention, flash_decode, mamba_scan, rmsnorm
+
+    return {m.__name__.rsplit(".", 1)[1]: m
+            for m in (rmsnorm, flash_attention, flash_decode, mamba_scan)}
+
+
+def check_fused_kernels(dev: torch.device, cases: dict) -> tuple[dict, dict]:
+    """Phase 2, K4-K7: each kernel against its plain version at the fused
+    plan's unit workloads (n = 2 and 6) and at the Jamba cases, under the
+    row-scaled limits; and the bf16-accumulating control, which must fail
+    them. Returns (max abs err per kernel at the unit workloads, Jamba
+    results per case)."""
+    from repro_torch.inkernel import FUSED_KERNELS, FUSED_LENS, build_fused, fused_kwargs
+
+    # The plain versions' einsums must run in full float32. TF32 is off by
+    # default; assigning the flag anyway turns matmul.fp32_precision from
+    # "none" to "ieee", which is part of Inductor's cache key, and every
+    # chain the compile workers build for the quick run would then miss.
+    if torch.backends.cuda.matmul.allow_tf32:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    mods = fused_modules()
+    err = {}
+    for name in FUSED_KERNELS:
+        err[name] = 0.0
+        for n in FUSED_LENS:
+            fn, args = build_fused(name, n, dev)
+            plain = getattr(mods[name], f"{name}_plain")
+            e, _ = hold(f"{name} unit workload n={n}", fn(*args),
+                        plain(*args, **fused_kwargs(name)))
+            err[name] = max(err[name], e)
+    jamba = {}
+    for label, (name, args, kw) in cases.items():
+        wrapper = getattr(mods[name], name)
+        plain = getattr(mods[name], f"{name}_plain")
+        e, ratio = hold(f"{name} Jamba {label}", wrapper(*args, **kw), plain(*args, **kw))
+        jamba[label] = {"max_abs_err": e, "err_over_limit": ratio}
+    controls = {
+        "flash_attention": lambda a, kw: attention_bf16_acc(*a, **kw),
+        "flash_decode": lambda a, kw: decode_bf16_acc(*a),
+    }
+    for name, control in controls.items():
+        label = JAMBA_TIMED[name]
+        _, args, kw = cases[label]
+        want = getattr(mods[name], f"{name}_plain")(*args, **kw)
+        ratio = row_scaled_ratio(control(args, kw), want, ROW_TOL[want.dtype])
+        print(f"  control {name} with p.v accumulated in bf16, Jamba {label}: "
+              f"worst err/limit {ratio:.3f} -> {'REJECTED' if ratio > 1 else 'passed'}")
+        if ratio <= 1.0:
+            fail(f"the bf16-accumulating control of {name} passes the limit: the "
+                 "limit cannot tell a sound kernel from an unsound one")
+        jamba[label]["control_err_over_limit"] = ratio
+    print(f"K4-K7: unit workloads n in {FUSED_LENS} and {len(cases)} Jamba cases agree")
+    return err, jamba
+
 
 def run_quick(dev: torch.device) -> dict[str, int]:
     """Phase 3: the quick plan through the CLI; returns each kernel's
@@ -148,10 +350,164 @@ def run_quick(dev: torch.device) -> dict[str, int]:
             fail(f"bad record {rec}")
     print(f"quick: {len(db)} records for the {len(named_plan('quick'))} probes of "
           f"the plan, no failures; launches {launches}")
-    for name, n in launches.items():
-        if n == 0:
+    for name in QUICK_KERNELS:
+        if launches[name] == 0:
             fail(f"kernel {name} was not launched by the quick run")
     return launches
+
+
+def run_fused(dev: torch.device) -> dict[str, int]:
+    """Phase 4: the fused plan through the CLI; returns each kernel's
+    launches during that run."""
+    from repro_torch.api.cli import main as cli_main
+    from repro_torch.api.plan import named_plan
+    from repro_torch.core.latency_db import LatencyDB, current_environment
+    from repro_torch.kernels.ops import KERNELS
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        db_path = str(Path(tmp) / "fused_db.json")
+        for k in KERNELS:
+            k.launches = 0
+        rc = cli_main(["characterize", "--plan", "fused", "--db", db_path, "--table"])
+        launches = {k.__name__: k.launches for k in KERNELS}
+        db = LatencyDB(db_path)
+    env = current_environment(dev)
+    failures = {f.op: f for f in db.failures()}
+    for probe in named_plan("fused"):
+        rec = db.get(probe.key(env))
+        if rec is None:
+            f = failures.get(probe.op)
+            if probe.name != "rmsnorm" or f is None or f.error_type != "NoisySlopeError":
+                fail(f"no record for {probe.op}: {f}")
+            print(f"fused: {probe.op} ended as a ProbeFailure: {f.error_type}: {f.message}")
+            continue
+        if not (math.isfinite(rec.latency_ns) and rec.latency_ns > 0 and rec.n_samples > 0
+                and rec.notes.startswith("cuda fused kernel lens=2-6 unit_bytes=")
+                and "clock=events" in rec.notes):
+            fail(f"bad record {rec}")
+        print(f"fused: {probe.op} measured {rec.latency_ns:.3f} ns per unit "
+              f"(MAD {rec.mad_ns:.3f}; notes {rec.notes})")
+    if rc != (1 if failures else 0):
+        fail(f"characterize --plan fused exited {rc} with {len(failures)} failures")
+    print(f"fused: {len(db)} records, {len(failures)} failures; launches "
+          f"{ {k: launches[k] for k in JAMBA_TIMED} }")
+    for name in JAMBA_TIMED:
+        if launches[name] == 0:
+            fail(f"kernel {name} was not launched by the fused run")
+    return launches
+
+
+def fused_work(name: str, args: tuple, kw: dict) -> tuple[int, int, float]:
+    """(bytes, operations, peak operations/s) of one call: each input read
+    once and the output written once; operations counted for what these
+    inputs need (causal and kv_len masks cut the visible pairs), at the
+    peak of the inputs' type."""
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    x = args[0]
+    rate = BF16_OPS_PER_S if x.dtype == torch.bfloat16 else FP32_OPS_PER_S
+    if name == "rmsnorm":   # x, w in; out; square-add, scale, weight: 4 per element
+        return nbytes(*args, x), 4 * x.numel(), rate
+    if name == "flash_attention":  # q, k, v in; o out; 4 D per visible pair and head
+        b, sq, h, d = x.shape
+        sk = args[1].shape[1]
+        if kw.get("causal", True):
+            pairs = sum(max(0, min(sk, i + sk - sq + 1)) for i in range(sq))
+        else:
+            pairs = sq * sk
+        return nbytes(*args, x), 4 * d * b * h * pairs, rate
+    if name == "flash_decode":  # the keys below kv_len only
+        q, k, _, kv_len = args
+        b, h, d = q.shape
+        s, kh = k.shape[1], k.shape[2]
+        keys = int(kv_len.clamp(0, s).sum())
+        kv = 2 * keys * kh * d * k.element_size()
+        return nbytes(q, kv_len, q) + kv, 4 * d * h * keys, rate
+    # mamba_scan: x, dt, A, B, C, D in; y out; per (t, channel) softplus and
+    # dt*x (~6), per state dim exp, two multiplies and two fmas (~7)
+    bsz, s, dm = x.shape
+    n = args[2].shape[1]
+    return nbytes(*args, x), (7 * n + 6) * bsz * s * dm, FP32_OPS_PER_S
+
+
+def library_call(name: str, args: tuple, kw: dict):
+    """One PyTorch call computing the same function on the same inputs, or
+    None: F.rms_norm; SDPA with enable_gqa (non-causal, or causal at Sq =
+    Sk, where SDPA's top-left causal mask is the kernel's); SDPA with a
+    kv_len mask for decode. A yardstick only: nothing in the port calls it."""
+    import torch.nn.functional as F
+
+    if name == "rmsnorm":
+        x, w = args
+        return lambda: F.rms_norm(x, (x.shape[-1],), w, eps=1e-6)
+    if name == "flash_attention":
+        q, k, v = (t.transpose(1, 2) for t in args)
+        causal = kw.get("causal", True)
+        if causal and q.shape[2] != k.shape[2]:
+            return None
+        return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                      enable_gqa=True)
+    if name == "flash_decode":
+        q, k, v, kv_len = args
+        s = k.shape[1]
+        mask = (torch.arange(s, device=q.device)[None, :]
+                < kv_len.long()[:, None])[:, None, None, :]
+        q4, k4, v4 = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+        return lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                                      enable_gqa=True)
+    return None
+
+
+def time_fused(dev: torch.device, err: dict, jamba: dict, cases: dict,
+               launches: dict) -> list[dict]:
+    """Phase 5, K4-K7: the kernel (CUDA events behind a lead), its plain
+    version (wall time to completion), its bound and the library call, at
+    the fused plan's larger unit workload (n = 6) and at the Jamba case."""
+    from repro_torch.core.timing import Timer
+    from repro_torch.inkernel import (FUSED_KERNELS, FUSED_LENS, build_fused, fused_kwargs,
+                                      unit_bytes)
+
+    mods = fused_modules()
+    replaces = {"rmsnorm": "src/repro/kernels/rmsnorm.py:20",
+                "flash_attention": "src/repro/kernels/flash_attention.py:76",
+                "flash_decode": "src/repro/kernels/flash_decode.py:60",
+                "mamba_scan": "src/repro/kernels/mamba_scan.py:46"}
+    timer = Timer(warmup=3, reps=20, device=dev)
+
+    def measure(name, args, kw, label):
+        wrapper = getattr(mods[name], name)
+        plain = getattr(mods[name], f"{name}_plain")
+        ms = timer.time_callable(lambda: wrapper(*args, **kw)).median_ns / 1e6
+        plain_ms = wall_ms(lambda: plain(*args, **kw), reps=3)
+        lib = library_call(name, args, kw)
+        library_ms = None if lib is None else timer.time_callable(lib).median_ns / 1e6
+        nbytes, nops, rate = fused_work(name, args, kw)
+        bound_ms, bound_by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                                 (nops / rate * 1e3, "operations"))
+        lib_txt = "null" if library_ms is None else f"{library_ms:.6f} ms"
+        print(f"{name} [{label}]: {ms:.6f} ms/launch on the card, plain {plain_ms:.6f} ms "
+              f"wall, bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, {nops} ops), "
+              f"library {lib_txt}, {ms / bound_ms:.1f} x the bound")
+        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms}
+
+    out = []
+    n = FUSED_LENS[1]
+    for name in FUSED_KERNELS:
+        _, args = build_fused(name, n, dev)
+        unit = measure(name, args, fused_kwargs(name), f"unit workload n={n}, "
+                                       f"unit_bytes={unit_bytes(name)}")
+        label = JAMBA_TIMED[name]
+        _, jargs, jkw = cases[label]
+        big = measure(name, jargs, jkw, f"Jamba {label}")
+        big.update(jamba[label], shape=label)
+        print(f"{name}: {launches[name]} launches on the fused path")
+        out.append({"name": name, "route": "cuda",
+                    "source": f"src/repro_torch/csrc/{name}.cu",
+                    "replaces": replaces[name], "launches": launches[name],
+                    "max_abs_err": err[name], **unit, "jamba": big})
+    return out
 
 
 def time_kernels(dev: torch.device, err: dict, launches: dict) -> list[dict]:
@@ -305,12 +661,14 @@ def main() -> int:
     build = _build.build()
     print(f"library: {build} ({', '.join(f'lib{k}.so' for k in _build.KERNELS)})")
     for line in (build / "build.log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling entry function" in line:
             print(f"  ptxas: {line.strip()}")
     phase("build", t0)
 
     t0 = time.perf_counter()
     err = check_kernels(dev)
+    cases = jamba_inputs(dev)
+    fused_err, jamba = check_fused_kernels(dev, cases)
     phase("kernels", t0)
 
     t0 = time.perf_counter()
@@ -318,7 +676,12 @@ def main() -> int:
     phase("quick", t0)
 
     t0 = time.perf_counter()
+    fused_launches = run_fused(dev)
+    phase("fused", t0)
+
+    t0 = time.perf_counter()
     kernels = time_kernels(dev, err, launches)
+    kernels += time_fused(dev, fused_err, jamba, cases, fused_launches)
     clock_study(dev)
     loop_study(dev)
     phase("timing", t0)

@@ -11,6 +11,6 @@ The front door is ``repro_torch.api`` (``Session`` / ``Plan`` / ``Probe``)::
 
     from repro_torch.api import Session, named_plan
 
-CLI: ``python -m repro_torch characterize --plan quick --db PATH [--table]``.
+CLI: ``python -m repro_torch characterize --plan quick|fused --db PATH [--table]``.
 """
 __version__ = "0.1.0"

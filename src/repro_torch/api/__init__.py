@@ -6,17 +6,17 @@
   fingerprint and the LatencyDB-backed cache; runs plans incrementally.
 * :class:`ResultSet` — per-probe outcomes plus report helpers.
 
-CLI: ``python -m repro_torch characterize --plan quick --db PATH [--table]
-[--device cuda|cpu]``.
+CLI: ``python -m repro_torch characterize --plan quick|fused --db PATH
+[--table] [--device cuda|cpu]``.
 """
 from repro_torch.api.plan import PLAN_NAMES, PORTED_PLANS, QUICK_OPS, Plan, named_plan
-from repro_torch.api.probes import (ClockOverheadProbe, InstructionProbe,
-                                    KernelProbe, MemoryProbe, Probe,
-                                    ProbeContext)
+from repro_torch.api.probes import (ClockOverheadProbe, FusedKernelProbe,
+                                    InstructionProbe, KernelProbe, MemoryProbe,
+                                    Probe, ProbeContext)
 from repro_torch.api.session import ProbeResult, ResultSet, Session
 
 __all__ = [
     "PLAN_NAMES", "PORTED_PLANS", "QUICK_OPS", "Plan", "named_plan",
-    "ClockOverheadProbe", "InstructionProbe", "KernelProbe", "MemoryProbe",
+    "ClockOverheadProbe", "FusedKernelProbe", "InstructionProbe", "KernelProbe", "MemoryProbe",
     "Probe", "ProbeContext", "ProbeResult", "ResultSet", "Session",
 ]

@@ -6,6 +6,7 @@ Examples::
     python -m repro_torch characterize --plan quick --db db.json   # cache hits
     python -m repro_torch characterize --plan quick --db db.json --force
     python -m repro_torch characterize --plan quick --db db.json --device cpu
+    python -m repro_torch characterize --plan fused --db db.json --table
 
 It runs on ``cuda:0`` unless ``--device`` names another device; where the
 card is asked for and there is none it exits with an error, it does not run
@@ -36,8 +37,8 @@ def build_parser() -> argparse.ArgumentParser:
     ch = sub.add_parser("characterize",
                         help="run a characterization plan into a LatencyDB")
     ch.add_argument("--plan", choices=PLAN_NAMES, default="quick",
-                    help="named probe plan (default: quick; the only one "
-                         "ported so far)")
+                    help="named probe plan (default: quick; ported so far: "
+                         "quick, fused)")
     ch.add_argument("--db", required=True,
                     help="LatencyDB JSON path (loaded if present; flushed "
                          "after every probe)")

@@ -2,17 +2,19 @@
 
 A :class:`Plan` is an ordered, duplicate-free tuple of probes; builders make
 the paper's sweeps, ``+`` composes plans and ``filter`` trims them. The
-algebra and the ``quick`` plan are those of ``repro.api.plan``, so both
-packages give the same ordered logical keys. The other named plans of the
-JAX package are not ported yet.
+algebra and the ``quick`` and ``fused`` plans are those of
+``repro.api.plan``, so both packages give the same ordered logical keys.
+The other named plans of the JAX package are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Iterable, Iterator, Sequence
 
-from repro_torch.api.probes import (ClockOverheadProbe, InstructionProbe,
-                                    KernelProbe, MemoryProbe, Probe)
+from repro_torch import inkernel
+from repro_torch.api.probes import (ClockOverheadProbe, FusedKernelProbe,
+                                    InstructionProbe, KernelProbe, MemoryProbe,
+                                    Probe)
 from repro_torch.core import chains
 from repro_torch.core.chains import OpSpec
 from repro_torch.core.optlevels import OPT_LEVELS
@@ -27,7 +29,7 @@ QUICK_OPS = ("add", "mul", "mad", "div.s.regular", "div.s.irregular",
 PLAN_NAMES = ("quick", "table2", "memory", "inkernel", "memory-inkernel",
               "fused", "serving", "collectives", "serving-sharded", "slo",
               "full")
-PORTED_PLANS = ("quick",)
+PORTED_PLANS = ("quick", "fused")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,6 +109,16 @@ class Plan:
         return Plan(tuple(KernelProbe(op, lens=lens) for op in kernel_ops),
                     name="kernels")
 
+    @staticmethod
+    def fused(names: Sequence[str] | None = None,
+              lens: tuple[int, int] | None = None) -> "Plan":
+        """One :class:`FusedKernelProbe` per fused kernel (flash_attention /
+        flash_decode / mamba_scan / rmsnorm): the ``inkernel.fused.<name>``
+        rows."""
+        names = tuple(names if names is not None else inkernel.FUSED_KERNELS)
+        return Plan(tuple(FusedKernelProbe(n, lens=lens) for n in names),
+                    name="fused")
+
 
 def _compose_name(a: str, b: str, max_parts: int = 3) -> str:
     """Name for ``a + b``: deduped '+'-join, capped (``a+b+c+2more``)."""
@@ -138,12 +150,15 @@ def _dedupe(probes: Sequence[Probe]) -> tuple[Probe, ...]:
 
 
 def named_plan(name: str) -> Plan:
-    """The CLI's plan registry (only ``quick`` is ported so far)."""
+    """The CLI's plan registry (:data:`PORTED_PLANS` run; the JAX package's
+    other names raise)."""
     if name == "quick":
         plan = (Plan.clock_overhead(("O0", "O3"))
                 + Plan.instructions(ops=QUICK_OPS, opt_levels=("O0", "O3"))
                 + Plan.memory((1 << 13, 1 << 17, 1 << 21), steps=(512, 1536))
                 + Plan.kernels(("fma",)))
+    elif name == "fused":
+        plan = Plan.fused()
     elif name in PLAN_NAMES:
         raise ValueError(f"plan {name!r} is not ported yet; ported plans: "
                          f"{PORTED_PLANS} (see ROADMAP.md)")

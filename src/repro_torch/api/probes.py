@@ -13,6 +13,8 @@ packages.
 * :class:`ClockOverheadProbe` — the cost of the timed region itself (Fig. 5).
 * :class:`KernelProbe` — the in-kernel dependent ALU chain (the paper's
   timed PTX block), through the ``alu_chain`` kernel.
+* :class:`FusedKernelProbe` — one fused kernel (rmsnorm, flash_attention,
+  flash_decode, mamba_scan) as a two-size workload slope.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import Any, Callable, Mapping
 
 import torch
 
+from repro_torch import inkernel
 from repro_torch.core import measure, membench
 from repro_torch.core.chains import KERNEL_CHAIN_UNROLL, OpSpec
 from repro_torch.core.latency_db import LatencyRecord
@@ -277,3 +280,44 @@ class KernelProbe(Probe):
         route = "cuda" if ctx.device.type == "cuda" else "plain"
         return self._record(
             ctx, m, notes=f"{route} alu_chain tile={self.shape} lens={self.lens}")
+
+
+class FusedKernelProbe(Probe):
+    """One fused kernel as a two-size workload slope (``inkernel.fused.<name>``
+    rows; plan name ``fused``).
+
+    The same netting algebra as :class:`KernelProbe`, with the chain length
+    replaced by a workload-unit count (KV blocks for the attention kernels,
+    sequence chunks for the SSM scan, row blocks for rmsnorm): two sizes
+    share the launch path and tile shapes, so the slope is the per-unit
+    kernel cost. The bytes a unit adds (``unit_bytes=``) ride in the notes.
+    """
+
+    category = "kernel"
+
+    def __init__(self, name: str, lens: tuple[int, int] | None = None,
+                 reps: int = 5):
+        if name not in inkernel.FUSED_KERNELS:
+            raise ValueError(f"unknown fused kernel {name!r}; known: "
+                             f"{', '.join(inkernel.FUSED_KERNELS)}")
+        self.name = name
+        self.lens = tuple(lens) if lens is not None else tuple(inkernel.FUSED_LENS)
+        self.reps = reps
+        self.base_op = f"inkernel.fused.{name}"
+        self.op = self.base_op
+        if self.lens != tuple(inkernel.FUSED_LENS):
+            self.op += f".l{self.lens[0]}-{self.lens[1]}"
+
+    def match_names(self) -> frozenset[str]:
+        return frozenset((self.op, self.base_op, self.name))
+
+    def prepare(self, ctx: ProbeContext):
+        return inkernel.prepare_fused(self.name, lens=self.lens, device=ctx.device,
+                                      reps=self.reps)
+
+    def run_prepared(self, ctx: ProbeContext, prepared) -> LatencyRecord:
+        m = inkernel.run_prepared_fused(prepared, ctx.timer)
+        route = "cuda" if ctx.device.type == "cuda" else "plain"
+        return self._record(
+            ctx, m, notes=f"{route} fused kernel lens={self.lens[0]}-{self.lens[1]} "
+                          f"unit_bytes={inkernel.unit_bytes(self.name)}")

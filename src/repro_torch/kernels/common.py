@@ -8,6 +8,23 @@ from __future__ import annotations
 
 import torch
 
+NEG_INF = -1e30  # finite mask value: -inf breaks max-subtraction on empty rows
+
+# dtype -> the kernels' dtype code (csrc/common.cuh kFloat32, kBFloat16)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def pick_block(dim: int, preferred: int) -> int:
+    """Largest divisor of ``dim`` that is <= preferred."""
+    b = min(preferred, dim)
+    while dim % b:
+        b -= 1
+    return b
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """The device an entry point runs on: ``cuda:0`` unless the caller names

@@ -7,7 +7,13 @@ runs with ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
 
 Tolerances: op_chain and chase bit-exact; alu_chain rtol 1e-5 (its fma step
 rounds once in the kernel, twice in the plain version; its rsqrt and exp
-steps differ by an ulp or two; every step contracts an error).
+steps differ by an ulp or two; every step contracts an error). The fused
+kernels K4-K7 are held element by element to ``tol * (|want| + rms(want's
+row))``, a row being the last dimension: tol 2^-7 in bfloat16 (one rounding
+of the output; two roundings of nearby float32 values differ by at most
+an ulp, 2^-8 to 2^-7 of the value) and 2^-13 in float32 (float32 sums in
+another order; below TF32's 2^-11). A flat 3e-2 would pass a kernel that
+accumulates p . v in bfloat16 once a row averages over hundreds of keys.
 """
 import json
 
@@ -22,17 +28,42 @@ from repro_torch.core.timing import Timer
 from repro_torch.kernels import opchain
 from repro_torch.kernels.alu_chain import OPS, alu_chain, alu_chain_plain
 from repro_torch.kernels.chase import chase, chase_plain
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
+from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_plain
 from repro_torch.kernels.opchain import op_chain, op_chain_plain
+from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
 
 pytestmark = pytest.mark.cuda
 ALU_RTOL = 1e-5
+ROW_TOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 2.0 ** -13}
 
 
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (torch.cuda.is_available() is False)")
+    # the plain versions' einsums run in full float32 (TF32 is off by default)
+    assert not torch.backends.cuda.matmul.allow_tf32
     return torch.device("cuda:0")
+
+
+def _hold(got, want):
+    """Every element within tol * (|want| + rms(want's row)); an all-zero
+    row of want must be matched exactly."""
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    g, w = got.float().cpu(), want.float().cpu()
+    limit = ROW_TOL[want.dtype] * (w.abs() + w.pow(2).mean(dim=-1, keepdim=True).sqrt())
+    bad = (g - w).abs() > limit
+    assert not bad.any(), (f"{int(bad.sum())} elements over the limit; worst "
+                           f"{float(((g - w).abs() - limit).max()):.3g} above it")
+
+
+def _randn(dev, *shape, dtype=torch.float32, scale=1.0, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(*shape, generator=g) * scale).to(dtype).to(dev)
 
 
 def _draw(rng, dtype, shape):
@@ -116,3 +147,109 @@ def test_cli_defaults_to_the_card(dev, tmp_path, capsys):
     assert rc == 0, capsys.readouterr()
     blob = json.loads(db.read_text())
     assert {r["backend"] for r in blob["records"]} == {"cuda"}
+
+
+# ------------------------------------------------------------ K4-K7
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(64, 128), (96, 256), (256, 64), (3, 1000),
+                                   (2, 5, 4096)])
+def test_rmsnorm_kernel_matches_plain(dev, shape, dtype):
+    x = _randn(dev, *shape, dtype=dtype, seed=1)
+    w = _randn(dev, shape[-1], dtype=dtype, seed=2)
+    before = rmsnorm.launches
+    got = rmsnorm(x, w)
+    assert rmsnorm.launches == before + 1
+    _hold(got, rmsnorm_plain(x, w))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,sq,sk,h,kh,d,causal", [
+    (1, 128, 128, 4, 4, 64, True),      # MHA square
+    (2, 128, 128, 4, 2, 32, True),      # GQA
+    (1, 64, 192, 6, 3, 16, True),       # sq != sk (prefix cache)
+    (2, 256, 256, 8, 1, 64, True),      # MQA
+    (2, 64, 96, 4, 2, 32, False),       # non-causal
+    (1, 100, 37, 4, 2, 128, True),      # sq > sk: rows that see no key are 0
+    (1, 1000, 1000, 8, 2, 128, True),   # a long row: the row-scaled limit bites
+])
+def test_flash_attention_kernel_matches_plain(dev, b, sq, sk, h, kh, d, causal, dtype):
+    q = _randn(dev, b, sq, h, d, dtype=dtype, seed=3)
+    k = _randn(dev, b, sk, kh, d, dtype=dtype, seed=4)
+    v = _randn(dev, b, sk, kh, d, dtype=dtype, seed=5)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal)
+    _hold(got, want)
+    if causal and sq > sk:
+        assert torch.all(got[:, :sq - sk].float() == 0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,s,h,kh,d,lens", [
+    (2, 256, 8, 2, 64, (256, 243)), (3, 128, 4, 4, 32, (128, 115, 102)),
+    (1, 512, 2, 1, 128, (512,)), (2, 64, 8, 1, 16, (64, 0)),
+    (4, 1000, 32, 8, 128, (1000, 999, 1, 0)),
+])
+def test_flash_decode_kernel_matches_plain(dev, b, s, h, kh, d, lens, dtype):
+    q = _randn(dev, b, h, d, dtype=dtype, seed=6)
+    k = _randn(dev, b, s, kh, d, dtype=dtype, seed=7)
+    v = _randn(dev, b, s, kh, d, dtype=dtype, seed=8)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    before = flash_decode.launches
+    got = flash_decode(q, k, v, kv_len)
+    assert flash_decode.launches == before + 1
+    _hold(got, flash_decode_plain(q, k, v, kv_len))
+    for i, n in enumerate(lens):
+        if n == 0:
+            assert torch.all(got[i].float() == 0)
+
+
+@pytest.mark.parametrize("b,s,dm,n,chunk", [
+    (2, 64, 16, 8, 16), (1, 96, 8, 4, 32), (1, 100, 200, 16, 32), (2, 1024, 256, 16, 64),
+])
+def test_mamba_scan_kernel_matches_plain(dev, b, s, dm, n, chunk):
+    args = (_randn(dev, b, s, dm, scale=0.5, seed=9), _randn(dev, b, s, dm, scale=0.1, seed=10),
+            -torch.exp(_randn(dev, dm, n, scale=0.3, seed=11)),
+            _randn(dev, b, s, n, scale=0.5, seed=12), _randn(dev, b, s, n, scale=0.5, seed=13),
+            _randn(dev, dm, scale=0.1, seed=14))
+    before = mamba_scan.launches
+    got = mamba_scan(*args, chunk=chunk)
+    assert mamba_scan.launches == before + 1
+    _hold(got, mamba_scan_plain(*args, chunk=chunk))
+
+
+def test_fused_kernels_refuse_what_they_have_no_instance_for(dev):
+    q = torch.zeros(1, 8, 4, 48, device=dev)
+    with pytest.raises(ValueError, match="head dim 48"):
+        flash_attention(q, q[:, :, :2].contiguous(), q[:, :, :2].contiguous())
+    kv = torch.zeros(1, 8, 1, 16, device=dev)
+    kv_len = torch.ones(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="at most 8"):
+        flash_decode(torch.zeros(1, 16, 16, device=dev), kv, kv, kv_len)
+    x = torch.zeros(1, 8, 4, device=dev)
+    with pytest.raises(ValueError, match="N=5"):
+        mamba_scan(x, x, torch.zeros(4, 5, device=dev), torch.zeros(1, 8, 5, device=dev),
+                   torch.zeros(1, 8, 5, device=dev), torch.zeros(4, device=dev))
+    with pytest.raises(ValueError, match="kv_len on"):
+        flash_decode(torch.zeros(1, 2, 16, device=dev), kv, kv, kv_len.cpu())
+
+
+def test_fused_plan_runs_every_kernel_on_the_card(dev, tmp_path):
+    from repro_torch.api import Plan
+    from repro_torch.kernels.ops import KERNELS
+
+    for k in KERNELS:
+        k.launches = 0
+    session = Session(db=str(tmp_path / "db.json"), device=dev,
+                      timer=Timer(warmup=1, reps=5, device=dev))
+    result = session.run(Plan.fused())
+    for name in ("rmsnorm", "flash_attention", "flash_decode", "mamba_scan"):
+        assert {k.__name__: k.launches for k in KERNELS}[name] > 0
+    for r in result.failed:  # only the row-parallel rmsnorm may drown in noise
+        assert r.probe.name == "rmsnorm" and r.failure.error_type == "NoisySlopeError"
+    for rec in result.records():
+        assert rec.notes.startswith("cuda fused kernel lens=2-6 unit_bytes=")
