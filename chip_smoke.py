@@ -8,19 +8,30 @@ Run from the root of a checkout on a machine with one CUDA card and nvcc:
 Phases, each of which must pass:
 
 1. build the CUDA kernels from ``src/repro_torch/csrc`` (into ``build/``),
-   one nvcc per source, all at once, and print ptxas's register and spill
-   lines;
+   one nvcc per source, all at once, print ptxas's register and spill
+   lines, and check that the SASS of the built libraries shows what each
+   design promises: HGMMA (or HMMA) and UTMALDG (or LDGSTS) in K5's four
+   bf16 instances, and in K1's timed fma chain at n 64 a clock read before
+   the first of its 64 FFMAs and one after the last, with no branch
+   between them (counts printed);
 2. hold each kernel against its plain PyTorch version on the card: K1-K3 at
    the quick plan's shapes and one larger shape (alu_chain within rtol
-   1e-5, op_chain and chase bit-exact); K4-K7 at the fused plan's unit
+   1e-5, in both its forms, the timed one's cycles all positive; op_chain
+   and chase bit-exact); K4-K7 at the fused plan's unit
    workloads and at the widths of Jamba-v0.1 52B (d_model 4096, 32 heads,
    8 KV heads, head dim 128, Mamba Dm 8192, N 16, chunk 64), every element
    within ``tol * (|want| + rms(want's row))``, tol 2^-7 in bfloat16 (one
    rounding of the output) and 2^-13 in float32; a control that
-   accumulates p . v in bfloat16 must fail that limit for K5 and K6;
+   accumulates p . v in bfloat16 must fail that limit for K5 and K6. K5's
+   bf16 cases: Jamba causal, a prefix (Sq 512 < Sk 2048), Sq 100 > Sk 37
+   (whose 63 rows that see no key must be exactly 0), D 64 non-causal, and
+   Sq 1000, Sk 1937 (not multiples of 64); SDPA's own error on the Jamba
+   case is printed beside them, as a datum;
 3. run ``characterize --plan quick`` through the port's CLI, with every
    kernel's launch count set to 0 just before and read just after; the run
    must measure every row of the plan, with no failure, and launch K1-K3;
+   its kernel.alu_chain.fma row must be timed by the SM clock sandwich
+   (notes ``clock=sm_clock64@<MHz>``), every other row by CUDA events;
 4. the same for ``characterize --plan fused``: it must launch K4-K7 and
    measure the flash_attention, flash_decode and mamba_scan rows; the
    rmsnorm row may end as a NoisySlopeError failure (its row blocks run in
@@ -28,18 +39,23 @@ Phases, each of which must pass:
    prints which;
 5. time each kernel, its plain version, its bound and, where one PyTorch
    call computes the same function, that call, at the shapes the main
-   paths give it (K4-K7 also at the Jamba shapes); count non-positive
-   slopes of the host clock and of CUDA events over repeated trials, and
-   time op_chain's loop: each step's time with 1 and with 32 steps to an
-   iteration;
-6. print the ``{"kernels": [...]}`` line, the card's name and power limit,
-   and, last, ``{"ok": true, "device": {...}}``.
+   paths give it (K1 in its timed form, as the quick plan runs it on the
+   card; K4-K7 also at the Jamba shapes, K5 in both dtypes); count
+   non-positive slopes of the host clock, of CUDA events and of the SM clock sandwich
+   over repeated trials (the sandwich, which times the quick plan's
+   kernel.alu_chain.fma row, must have none), print the calibrated SM
+   clock, and time op_chain's loop: each step's time with 1 and with 32
+   steps to an iteration;
+6. print the ``{"kernels": [...]}`` line (each kernel with the design each
+   dtype runs), the card's name and power limit, and, last, ``{"ok": true,
+   "device": {...}}``.
 
 It exits non-zero, printing no result, when no CUDA card is visible or the
 repository's sources are missing.
 """
 from __future__ import annotations
 
+import importlib
 import json
 import math
 import subprocess
@@ -67,6 +83,12 @@ ROW_TOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 2.0 ** -13}
 QUICK_KERNELS = ("alu_chain", "op_chain", "chase")
 
 
+def designs(name: str) -> dict[str, str]:
+    """The design each dtype of kernel ``name`` runs, from its module's DESIGNS."""
+    mod = importlib.import_module(f"repro_torch.kernels.{name.replace('op_chain', 'opchain')}")
+    return {str(k).removeprefix("torch."): v for k, v in mod.DESIGNS.items()}
+
+
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
@@ -92,9 +114,16 @@ def check_kernels(dev: torch.device) -> dict[str, float]:
     """Phase 2: every kernel against its plain version on the card; returns
     the largest absolute error seen per kernel."""
     from repro_torch.core.membench import build_ring
-    from repro_torch.kernels.alu_chain import OPS, alu_chain, alu_chain_plain
+    from repro_torch.kernels.alu_chain import OPS, alu_chain, alu_chain_plain, alu_chain_timed
     from repro_torch.kernels.chase import chase, chase_plain
     from repro_torch.kernels.opchain import STEPS, UNROLLS, op_chain, op_chain_plain
+
+    def timed(x, a, n, op):  # the form the quick plan launches on the card
+        out, cycles = alu_chain_timed(x, a, n=n, op=op)
+        if not bool((cycles > 0).all()):
+            fail(f"alu_chain_timed {op} n={n} {tuple(x.shape)}: a thread's cycles "
+                 f"are not positive (min {int(cycles.min())})")
+        return out
 
     rng = np.random.RandomState(0)
     err = {"alu_chain": 0.0, "op_chain": 0.0, "chase": 0.0}
@@ -102,16 +131,18 @@ def check_kernels(dev: torch.device) -> dict[str, float]:
         x = torch.from_numpy(rng.uniform(0.5, 1.5, shape).astype(np.float32)).to(dev)
         a = torch.from_numpy(rng.uniform(0.5, 1.0, shape).astype(np.float32)).to(dev)
         for op in OPS:
-            for n in (8, 64):
-                got = alu_chain(x, a, n=n, op=op)
+            for n in (8, 64, 45):  # straight-line at 8 and 64, a loop at 45
                 want = alu_chain_plain(x, a, n=n, op=op)
-                torch.cuda.synchronize()
-                if not torch.isfinite(got).all():
-                    fail(f"alu_chain {op} n={n} {shape}: non-finite output")
-                torch.testing.assert_close(got, want, rtol=ALU_RTOL, atol=0)
-                err["alu_chain"] = max(err["alu_chain"], float((got - want).abs().max()))
-    print(f"K1 alu_chain: {len(OPS)} ops x n in (8, 64) x (8, 128), (1024, 1024) "
-          f"agree, max abs err {err['alu_chain']:.3g} (rtol {ALU_RTOL})")
+                for form, fn in (("alu_chain", alu_chain), ("alu_chain_timed", timed)):
+                    got = fn(x, a, n=n, op=op)
+                    torch.cuda.synchronize()
+                    if not torch.isfinite(got).all():
+                        fail(f"{form} {op} n={n} {shape}: non-finite output")
+                    torch.testing.assert_close(got, want, rtol=ALU_RTOL, atol=0)
+                    err["alu_chain"] = max(err["alu_chain"], float((got - want).abs().max()))
+    print(f"K1 alu_chain and its timed form: {len(OPS)} ops x n in (8, 64, 45) x (8, 128), "
+          f"(1024, 1024) agree, max abs err {err['alu_chain']:.3g} (rtol {ALU_RTOL}); "
+          "every thread's cycles positive")
 
     for step, (dtype, n_ops, _) in STEPS.items():
         np_dtype = np.int32 if dtype == torch.int32 else np.uint32
@@ -242,6 +273,18 @@ def jamba_inputs(dev: torch.device) -> dict[str, tuple]:
             "flash_attention", (randn(1, 512, 32, 128, dtype=bf16),
                                 randn(1, 2048, 8, 128, dtype=bf16),
                                 randn(1, 2048, 8, 128, dtype=bf16)), {"causal": True}),
+        SEES_NO_KEY: (
+            "flash_attention", (randn(1, 100, 32, 128, dtype=bf16),
+                                randn(1, 37, 8, 128, dtype=bf16),
+                                randn(1, 37, 8, 128, dtype=bf16)), {"causal": True}),
+        "flash_attention bf16 non-causal q[1,2048,32,64] kv[1,2048,8,64]": (
+            "flash_attention", (randn(1, 2048, 32, 64, dtype=bf16),
+                                randn(1, 2048, 8, 64, dtype=bf16),
+                                randn(1, 2048, 8, 64, dtype=bf16)), {"causal": False}),
+        "flash_attention bf16 causal ragged q[1,1000,32,128] kv[1,1937,8,128]": (
+            "flash_attention", (randn(1, 1000, 32, 128, dtype=bf16),
+                                randn(1, 1937, 8, 128, dtype=bf16),
+                                randn(1, 1937, 8, 128, dtype=bf16)), {"causal": True}),
         "flash_decode bf16 q[8,32,128] kv[8,8192,8,128] kv_len "
         "(8192,8191,4097,4096,1000,129,1,0)": (
             "flash_decode", (randn(8, 32, 128, dtype=bf16),
@@ -254,6 +297,15 @@ def jamba_inputs(dev: torch.device) -> dict[str, tuple]:
                            randn(8192, scale=0.1)), {"chunk": 64}),
     }
 
+
+# The float32 case of K5 at Jamba widths, timed beside the bf16 one: each
+# dtype runs its own design (DESIGNS: wgmma for bf16, FMA for float32).
+JAMBA_TIMED_F32 = {
+    "flash_attention": "flash_attention f32 causal q[1,2048,32,128] kv[1,2048,8,128]",
+}
+
+# K5's case whose first Sq - Sk = 63 query rows see no key: they must be 0.
+SEES_NO_KEY = "flash_attention bf16 causal q[1,100,32,128] kv[1,37,8,128]"
 
 # The case of each fused kernel that chip_smoke times at Jamba widths.
 JAMBA_TIMED = {
@@ -300,8 +352,14 @@ def check_fused_kernels(dev: torch.device, cases: dict) -> tuple[dict, dict]:
     for label, (name, args, kw) in cases.items():
         wrapper = getattr(mods[name], name)
         plain = getattr(mods[name], f"{name}_plain")
-        e, ratio = hold(f"{name} Jamba {label}", wrapper(*args, **kw), plain(*args, **kw))
+        got = wrapper(*args, **kw)
+        e, ratio = hold(f"{name} Jamba {label}", got, plain(*args, **kw))
         jamba[label] = {"max_abs_err": e, "err_over_limit": ratio}
+        if label == SEES_NO_KEY:
+            blind = args[0].shape[1] - args[1].shape[1]
+            if not bool((got[:, :blind] == 0).all()):
+                fail(f"{label}: a query row that sees no key is not exactly 0")
+            print(f"  {label}: the {blind} rows that see no key are exactly 0")
     controls = {
         "flash_attention": lambda a, kw: attention_bf16_acc(*a, **kw),
         "flash_decode": lambda a, kw: decode_bf16_acc(*a),
@@ -317,6 +375,14 @@ def check_fused_kernels(dev: torch.device, cases: dict) -> tuple[dict, dict]:
             fail(f"the bf16-accumulating control of {name} passes the limit: the "
                  "limit cannot tell a sound kernel from an unsound one")
         jamba[label]["control_err_over_limit"] = ratio
+    # a datum, not a gate: SDPA's own error on K5's Jamba case
+    label = JAMBA_TIMED["flash_attention"]
+    _, args, kw = cases[label]
+    sdpa = library_call("flash_attention", args, kw)().transpose(1, 2)
+    ratio = row_scaled_ratio(sdpa, mods["flash_attention"].flash_attention_plain(*args, **kw),
+                             ROW_TOL[torch.bfloat16])
+    print(f"  SDPA (a yardstick, not the port) on Jamba {label}: worst err/limit {ratio:.3f}")
+    jamba[label]["sdpa_err_over_limit"] = ratio
     print(f"K4-K7: unit workloads n in {FUSED_LENS} and {len(cases)} Jamba cases agree")
     return err, jamba
 
@@ -345,9 +411,14 @@ def run_quick(dev: torch.device) -> dict[str, int]:
         rec = db.get(probe.key(env))
         if rec is None:
             fail(f"no record for {probe.op}@{probe.opt_level}")
+        # the in-kernel chain on the SM clock sandwich, every other row on events
+        clock = "clock=sm_clock64@" if probe.op.startswith("kernel.") else "clock=events"
         if not (math.isfinite(rec.latency_ns) and rec.latency_ns >= 0
-                and rec.n_samples > 0 and "clock=events" in rec.notes):
+                and rec.n_samples > 0 and clock in rec.notes):
             fail(f"bad record {rec}")
+        if probe.op.startswith("kernel."):
+            print(f"quick: {probe.op} {rec.latency_ns:.3f} ns, {rec.cycles:.2f} cycles "
+                  f"(MAD {rec.mad_ns:.3f} ns; notes {rec.notes})")
     print(f"quick: {len(db)} records for the {len(named_plan('quick'))} probes of "
           f"the plan, no failures; launches {launches}")
     for name in QUICK_KERNELS:
@@ -463,7 +534,8 @@ def time_fused(dev: torch.device, err: dict, jamba: dict, cases: dict,
                launches: dict) -> list[dict]:
     """Phase 5, K4-K7: the kernel (CUDA events behind a lead), its plain
     version (wall time to completion), its bound and the library call, at
-    the fused plan's larger unit workload (n = 6) and at the Jamba case."""
+    the fused plan's larger unit workload (n = 6) and at the Jamba case
+    (K5 also at its float32 Jamba case)."""
     from repro_torch.core.timing import Timer
     from repro_torch.inkernel import (FUSED_KERNELS, FUSED_LENS, build_fused, fused_kwargs,
                                       unit_bytes)
@@ -502,11 +574,18 @@ def time_fused(dev: torch.device, err: dict, jamba: dict, cases: dict,
         _, jargs, jkw = cases[label]
         big = measure(name, jargs, jkw, f"Jamba {label}")
         big.update(jamba[label], shape=label)
+        extra = {}
+        if name in JAMBA_TIMED_F32:
+            flabel = JAMBA_TIMED_F32[name]
+            _, fargs, fkw = cases[flabel]
+            extra["jamba_f32"] = measure(name, fargs, fkw, f"Jamba {flabel}")
+            extra["jamba_f32"].update(jamba[flabel], shape=flabel)
         print(f"{name}: {launches[name]} launches on the fused path")
         out.append({"name": name, "route": "cuda",
                     "source": f"src/repro_torch/csrc/{name}.cu",
-                    "replaces": replaces[name], "launches": launches[name],
-                    "max_abs_err": err[name], **unit, "jamba": big})
+                    "replaces": replaces[name], "design": designs(name),
+                    "launches": launches[name],
+                    "max_abs_err": err[name], **unit, "jamba": big, **extra})
     return out
 
 
@@ -518,7 +597,7 @@ def time_kernels(dev: torch.device, err: dict, launches: dict) -> list[dict]:
     from repro_torch.core.chains import KERNEL_CHAIN_UNROLL
     from repro_torch.core.membench import build_ring
     from repro_torch.core.timing import Timer
-    from repro_torch.kernels.alu_chain import alu_chain, alu_chain_plain
+    from repro_torch.kernels.alu_chain import alu_chain_plain, alu_chain_timed
     from repro_torch.kernels.chase import chase, chase_plain
     from repro_torch.kernels.opchain import op_chain, op_chain_plain
 
@@ -531,10 +610,10 @@ def time_kernels(dev: torch.device, err: dict, launches: dict) -> list[dict]:
         # name, source, replaces, kernel call, plain call, bytes, ops
         ("alu_chain", "src/repro_torch/csrc/alu_chain.cu",
          "src/repro/kernels/alu_chain.py:43",
-         lambda: alu_chain(x, a, n=64, op="fma"),
+         lambda: alu_chain_timed(x, a, n=64, op="fma"),
          lambda: alu_chain_plain(x, a, n=64, op="fma"),
-         3 * x.numel() * 4, 2 * 64 * x.numel(),
-         "fma, tile (8, 128), n=64"),
+         (3 * 4 + 8) * x.numel(), 2 * 64 * x.numel(),  # x, a, out; int64 cycles
+         "fma, tile (8, 128), n=64, timed form"),
         ("op_chain", "src/repro_torch/csrc/op_chain.cu",
          "src/repro/kernels/opchain.py:39",
          lambda: op_chain(c, p, step="popc", n=512, unroll=KERNEL_CHAIN_UNROLL),
@@ -561,7 +640,8 @@ def time_kernels(dev: torch.device, err: dict, launches: dict) -> list[dict]:
               f"{bound_ms:.3g} ms ({bound_by}: {nbytes} B, {nops} ops), "
               f"{launches[name]} launches on the main path [{shape}]")
         out.append({"name": name, "route": "cuda", "source": source,
-                    "replaces": replaces, "launches": launches[name],
+                    "replaces": replaces, "design": designs(name),
+                    "launches": launches[name],
                     "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
     return out
@@ -572,10 +652,13 @@ def clock_study(dev: torch.device, trials: int = 20, reps: int = 5) -> None:
     per length as core.timing's slope takes it, with three clocks: the host
     clock (perf_counter_ns around the call plus a synchronize), bare CUDA
     events around the call, and the port's clock (the events behind a lead,
-    ``Timer.time_once``)."""
+    ``Timer.time_once``); and, for K1's fma chain, a fourth: the SM clock
+    sandwich inside the kernel (median cycles over the tile's threads, as
+    the quick plan's kernel.alu_chain.fma row takes it), which must have
+    no non-positive slope."""
     from repro_torch.core.chains import KERNEL_CHAIN_UNROLL
-    from repro_torch.core.timing import Timer
-    from repro_torch.kernels.alu_chain import alu_chain
+    from repro_torch.core.timing import Timer, sm_clock_hz
+    from repro_torch.kernels.alu_chain import alu_chain, alu_chain_timed
     from repro_torch.kernels.opchain import op_chain
 
     x = torch.full((8, 128), 1.0, device=dev)
@@ -615,6 +698,78 @@ def clock_study(dev: torch.device, trials: int = 20, reps: int = 5) -> None:
             print(f"clock {clock:11s} {label}: {sum(s <= 0 for s in slopes)} of "
                   f"{trials} slopes non-positive; ns/step q1 {q1:.3f} "
                   f"median {med:.3f} q3 {q3:.3f}")
+
+    hz = sm_clock_hz(dev)
+    print(f"SM clock: {hz / 1e6:.1f} MHz (%clock64 against %globaltimer over 1 ms spins)")
+    label, n1, n2 = "kernel.alu_chain.fma (8, 64)", 8, 64
+    cycles = lambda n: float(alu_chain_timed(x, a, n=n)[1].median())  # noqa: E731
+    cycles(n1), cycles(n2)  # warm
+    slopes = []
+    for _ in range(trials):
+        c1 = min(cycles(n1) for _ in range(reps))
+        c2 = min(cycles(n2) for _ in range(reps))
+        slopes.append((c2 - c1) / (n2 - n1))
+    q1, med, q3 = np.percentile(slopes, (25, 50, 75))
+    bad = sum(c <= 0 for c in slopes)
+    print(f"clock sm_clock64 {label}: {bad} of {trials} slopes non-positive; cycles/step "
+          f"q1 {q1:.3f} median {med:.3f} q3 {q3:.3f}; ns/step median {med / hz * 1e9:.3f}")
+    if bad:
+        fail(f"the SM clock sandwich gave {bad} of {trials} non-positive slopes for {label}")
+
+
+def sass_checks(build: Path) -> None:
+    """What each design promises, in the SASS of the built libraries (counts
+    printed; a missing one fails): K5's bf16 instances run HGMMA (wgmma; or
+    HMMA, mma.sync) fed by UTMALDG (TMA; or LDGSTS, cp.async); K1's timed
+    fma chain at n 64 reads the clock before the first of its 64 FFMAs and
+    after the last, with no branch between the reads."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+
+    def functions(lib: str) -> dict[str, list[str]]:
+        out = subprocess.run([str(cuobjdump), "-sass", str(build / f"lib{lib}.so")],
+                             capture_output=True, text=True, check=True).stdout
+        funcs = {}
+        for block in out.split("Function : ")[1:]:
+            name, _, body = block.partition("\n")
+            funcs[name.strip()] = [ln for ln in body.splitlines() if re.search(r"/\*[0-9a-f]{4}\*/", ln)]
+        return funcs
+
+    def op(line: str) -> str:
+        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        return m.group(1) if m else ""
+
+    wgmma = {n: body for n, body in functions("flash_attention").items()
+             if "flash_attention_wgmma_kernel" in n}
+    if len(wgmma) != 4:
+        fail(f"expected 4 bf16 wgmma instances of K5 in the SASS, found {len(wgmma)}")
+    for name, body in wgmma.items():
+        ops = [op(ln) for ln in body]
+        counts = {o: ops.count(o) for o in ("HGMMA", "HMMA", "UTMALDG", "LDGSTS")}
+        if not ((counts["HGMMA"] or counts["HMMA"]) and (counts["UTMALDG"] or counts["LDGSTS"])):
+            fail(f"K5 bf16 instance {name}: {counts} in its SASS")
+        print(f"sass: K5 {name.split('wgmma_kernel')[-1][:12]}: "
+              + ", ".join(f"{n} {o}" for o, n in counts.items()) + f", {len(body)} instructions")
+    # alu_chain_kernel<op 0 (fma), N 64, timed>
+    (timed,) = [body for n, body in functions("alu_chain").items()
+                if "alu_chain_kernelILi0ELi64ELb1E" in n]
+    ops = [op(ln) for ln in timed]
+    clock = [i for i, ln in enumerate(timed) if "SR_CLOCK" in ln]
+    ffma = [i for i, o in enumerate(ops) if o == "FFMA"]
+    branches = [i for i in range(clock[0], clock[-1]) if ops[i] == "BRA"] if clock else []
+    if not (clock and len(ffma) == 64 and clock[0] < ffma[0] and clock[-1] > ffma[-1]
+            and not branches):
+        fail(f"K1 timed fma n 64: clock reads at {clock}, {len(ffma)} FFMAs at "
+             f"{ffma[:3]}..{ffma[-3:]}, branches at {branches}: the reads do not "
+             "bracket a straight-line chain of 64")
+    text = [ln.split(";")[0].split("*/")[-1].strip() for ln in timed]
+    print(f"sass: K1 timed fma chain, n 64: {len(clock)} clock reads at instructions {clock}, "
+          f"{len(ffma)} FFMAs between {ffma[0]} and {ffma[-1]}, no branch; each read and "
+          "the instruction before it: "
+          + "; ".join(f"{i}: {text[i - 1]} | {text[i]}" for i in clock))
 
 
 def loop_study(dev: torch.device, lens: tuple[int, int] = (64, 512),
@@ -663,6 +818,9 @@ def main() -> int:
     for line in (build / "build.log").read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry function" in line:
             print(f"  ptxas: {line.strip()}")
+        elif line.startswith("== "):  # a source and its nvcc's return code
+            print(f"  nvcc: {line[3:]}")
+    sass_checks(build)
     phase("build", t0)
 
     t0 = time.perf_counter()

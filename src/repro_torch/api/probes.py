@@ -28,8 +28,8 @@ from repro_torch.core import measure, membench
 from repro_torch.core.chains import KERNEL_CHAIN_UNROLL, OpSpec
 from repro_torch.core.latency_db import LatencyRecord
 from repro_torch.core.optlevels import compile_at_level
-from repro_torch.core.timing import Measurement, Timer
-from repro_torch.kernels.alu_chain import alu_chain
+from repro_torch.core.timing import Measurement, Timer, sandwich_slope, sm_clock_hz
+from repro_torch.kernels.alu_chain import alu_chain, alu_chain_timed
 from repro_torch.utils import timestamp
 
 
@@ -101,13 +101,16 @@ class Probe:
 
     # ------------------------------------------------------------------ util
     def _record(self, ctx: ProbeContext, m: Measurement, *, guard: int = 0,
-                notes: str = "", baseline: float | None = None) -> LatencyRecord:
+                notes: str = "", baseline: float | None = None,
+                clock: str | None = None, clock_hz: float | None = None) -> LatencyRecord:
         """Build the result record from a Measurement, netting out guards.
 
         ``baseline`` overrides the session's dispatch-level add baseline for
         probes whose guard ops run under another methodology (in-kernel).
-        The notes end with the clock that timed the row; a slope taken at
-        the widened retry's lengths says so (``retry_lens=n1-n2``).
+        The notes end with the clock that timed the row (``clock``, by
+        default the timer's); a slope taken at the widened retry's lengths
+        says so (``retry_lens=n1-n2``). ``cycles`` counts at ``clock_hz``,
+        by default the session's clock.
         """
         extra = []
         if ctx.adaptive:
@@ -120,11 +123,11 @@ class Probe:
         net = ns - guard * base
         if net < 0.0:  # flag the clamp below: a wrong guard count or baseline
             extra.append("clamped=1")
-        extra.append(f"clock={ctx.timer.clock}")
+        extra.append(f"clock={clock or ctx.timer.clock}")
         return LatencyRecord(
             op=self.op, category=self.category, dtype=self.dtype,
             opt_level=self.opt_level, latency_ns=ns, mad_ns=m.mad_ns,
-            cycles=ns * ctx.clock_hz / 1e9, guard=guard,
+            cycles=ns * (clock_hz or ctx.clock_hz) / 1e9, guard=guard,
             net_latency_ns=max(net, 0.0), n_samples=m.n,
             measured_at=timestamp(), notes=" ".join([notes, *extra]).strip(),
             **ctx.env)
@@ -236,8 +239,16 @@ class MemoryProbe(Probe):
 class KernelProbe(Probe):
     """In-kernel dependent ALU chain, slope-timed.
 
-    The paper's timed PTX block: the whole ``alu_chain`` kernel is the timed
-    region and the two-length slope cancels the launch overhead.
+    The paper's timed PTX block. On the card the clock is the paper's own
+    sandwich: each thread of the tile reads the SM's ``%clock64`` around
+    its chain (``alu_chain_timed``); a launch counts the median of the
+    tile's cycles, a length the minimum over the reps, and the slope in
+    cycles (:func:`~repro_torch.core.timing.sandwich_slope`) becomes ns at
+    the SM clock measured just before (:func:`~repro_torch.core.timing.
+    sm_clock_hz`), which the row's ``cycles`` count and its notes name
+    (``clock=sm_clock64@<MHz>``). On the CPU the whole ``alu_chain`` call is
+    the timed region on the host clock and the two-length slope cancels its
+    overhead.
     """
 
     category = "kernel"
@@ -267,8 +278,10 @@ class KernelProbe(Probe):
         x = torch.full(self.shape, 1.0, dtype=torch.float32, device=ctx.device)
         a = torch.full(self.shape, 0.5, dtype=torch.float32, device=ctx.device)
 
+        chain = alu_chain_timed if ctx.device.type == "cuda" else alu_chain
+
         def fn_by_len(n: int):
-            return lambda x, a: alu_chain(x, a, n=n, op=self.kernel_op)
+            return lambda x, a: chain(x, a, n=n, op=self.kernel_op)
 
         for n in self.lens:  # the first launch builds and loads the kernel
             measure._first_call(fn_by_len(n), x, a)
@@ -276,10 +289,16 @@ class KernelProbe(Probe):
 
     def run_prepared(self, ctx: ProbeContext, prepared) -> LatencyRecord:
         fn_by_len, x, a = prepared
-        m = ctx.timer.slope(fn_by_len, *self.lens, x, a, reps=self.reps)
-        route = "cuda" if ctx.device.type == "cuda" else "plain"
+        if ctx.device.type == "cpu":
+            m = ctx.timer.slope(fn_by_len, *self.lens, x, a, reps=self.reps)
+            return self._record(
+                ctx, m, notes=f"plain alu_chain tile={self.shape} lens={self.lens}")
+        hz = sm_clock_hz(ctx.device)
+        m = sandwich_slope(lambda n: lambda: fn_by_len(n)(x, a)[1], *self.lens,
+                           clock_hz=hz, reps=self.reps, warmup=max(ctx.timer.warmup, 1))
         return self._record(
-            ctx, m, notes=f"{route} alu_chain tile={self.shape} lens={self.lens}")
+            ctx, m, notes=f"cuda alu_chain tile={self.shape} lens={self.lens}",
+            clock=f"sm_clock64@{hz / 1e6:.0f}", clock_hz=hz)
 
 
 class FusedKernelProbe(Probe):

@@ -22,6 +22,15 @@ jitter. So every time here is device time: at O0 the card's time for the
 eager kernels one after another, at O3 the fused kernel's. On the CPU the
 clock is ``time.perf_counter_ns`` around the region (``clock="host"``).
 Every probe records which one in its notes.
+
+On the card a third clock reaches inside a kernel: the paper's own
+sandwich, the SM's ``%clock64`` read by each thread right before and right
+after its dependent chain (``alu_chain_timed``). ``sandwich_slope`` takes
+the two-length slope in SM cycles, and ``sm_clock_hz`` (the cycle counter
+against the card's nanosecond timer) converts it to time. Only the
+in-kernel chain's row is timed so and counts SM cycles; every other row's
+``cycles`` column keeps the pseudo-clock of ``Timer.calibrate_clock_hz``.
+The TPU had no such counter.
 """
 from __future__ import annotations
 
@@ -92,6 +101,51 @@ class Measurement:
 
     def scaled(self, k: float) -> "Measurement":
         return Measurement(self.median_ns * k, self.mad_ns * k, self.min_ns * k, self.n)
+
+
+def sm_clock_hz(device: str | torch.device | None = None) -> float:
+    """The SM clock of a CUDA ``device`` (default ``cuda:0``) in Hz: the
+    median over three spins of about 1 ms of SM cycles / global-timer
+    seconds. Raises on the CPU, which has no SM clock."""
+    from repro_torch.kernels.alu_chain import sm_clock_sample
+
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise RuntimeError(f"sm_clock_hz: the SM clock exists only on a CUDA card, "
+                           f"not on {dev}")
+    with torch.cuda.device(dev):
+        rates = [c / ns * 1e9 for c, ns in (sm_clock_sample(dev) for _ in range(3))]
+    return statistics.median(rates)
+
+
+def sandwich_slope(cycles_by_len: Callable[[int], Callable[[], torch.Tensor]],
+                   n1: int, n2: int, *, clock_hz: float, reps: int = 5,
+                   warmup: int = 1) -> Measurement:
+    """Per-op latency of an in-kernel chain on the SM clock.
+
+    ``cycles_by_len(n)()`` launches the chain of length ``n`` and returns
+    each thread's cycles between its two clock reads. A launch counts the
+    median over its threads, a length the minimum over ``reps`` launches
+    (noise only adds), and the slope is ``(c(n2) - c(n1)) / (n2 - n1)``
+    cycles, converted to ns at ``clock_hz``; ``mad_ns`` is the MAD of the
+    per-launch slopes. A non-positive slope raises :class:`NoisySlopeError`.
+    """
+    if not n2 > n1 >= 0:
+        raise ValueError(f"slope needs n2 > n1 >= 0, got ({n1}, {n2})")
+    per_len = []
+    for n in (n1, n2):
+        fn = cycles_by_len(n)
+        for _ in range(warmup):
+            fn()
+        per_len.append([float(fn().median()) for _ in range(reps)])
+    ns_per_cycle = 1e9 / clock_hz
+    slope = (min(per_len[1]) - min(per_len[0])) / (n2 - n1) * ns_per_cycle
+    if slope <= 0:
+        raise NoisySlopeError(f"non-positive slope ({slope:.3f} ns/op) on the SM clock "
+                              f"at chain lens ({n1}, {n2})")
+    each = [(c2 - c1) / (n2 - n1) * ns_per_cycle for c1, c2 in zip(*per_len)]
+    mad = _summarize(each).mad_ns
+    return Measurement(median_ns=slope, mad_ns=mad, min_ns=slope, n=reps)
 
 
 def _summarize(samples_ns: Sequence[float]) -> Measurement:

@@ -5,6 +5,13 @@ chain of one op over an [R, C] float32 tile, ``x <- op(x, a)``. The kernel
 is ``csrc/alu_chain.cu`` (one element per thread, the op a template
 parameter); ``alu_chain_plain`` beside it is the same function in plain
 PyTorch, which the wrapper runs for tensors on the CPU.
+
+``alu_chain_timed`` runs the same kernel in its timed form, the paper's
+clock sandwich: each thread reads the SM's ``%clock64`` right before and
+right after its chain and returns the difference in cycles. ``sm_clock_sample``
+reads the SM clock against the card's nanosecond timer, from which
+``core.timing.sm_clock_hz`` converts cycles to time. Both exist on a CUDA
+card only: a cycle counter has no plain version.
 """
 from __future__ import annotations
 
@@ -17,6 +24,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.common import check_tensors, stream_handle
 
 OPS = ("fma", "add", "mul", "rsqrt", "exp")  # index == the kernel's op id
+# the design each dtype runs on the card (a label for chip_smoke.py)
+DESIGNS = {torch.float32: "thread per element, op a template, straight-line at n 8 and 64; "
+                          "timed form: clock64 sandwich"}
 
 
 def _step(x: torch.Tensor, a: torch.Tensor, op: str) -> torch.Tensor:
@@ -44,11 +54,21 @@ def alu_chain_plain(x: torch.Tensor, a: torch.Tensor, *, n: int,
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.library("alu_chain")
-    lib.alu_chain_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                     ctypes.c_void_p, ctypes.c_longlong,
-                                     ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.alu_chain_launch.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.alu_chain_launch.restype = ctypes.c_int
+    lib.sm_clock_launch.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+    lib.sm_clock_launch.restype = ctypes.c_int
     return lib
+
+
+def _check_chain(name: str, x: torch.Tensor, a: torch.Tensor, n: int,
+                 op: str) -> torch.device:
+    if op not in OPS:
+        raise ValueError(f"{name}: op must be one of {OPS}, got {op!r}")
+    if n < 0:
+        raise ValueError(f"{name}: n must be >= 0, got {n}")
+    return check_tensors(name, torch.float32, tuple(x.shape), x=x, a=a)
 
 
 def alu_chain(x: torch.Tensor, a: torch.Tensor, *, n: int,
@@ -60,20 +80,54 @@ def alu_chain(x: torch.Tensor, a: torch.Tensor, *, n: int,
     launch in ``alu_chain.launches``); on CPU tensors it runs
     :func:`alu_chain_plain`.
     """
-    if op not in OPS:
-        raise ValueError(f"alu_chain: op must be one of {OPS}, got {op!r}")
-    if n < 0:
-        raise ValueError(f"alu_chain: n must be >= 0, got {n}")
-    device = check_tensors("alu_chain", torch.float32, tuple(x.shape), x=x, a=a)
+    device = _check_chain("alu_chain", x, a, n, op)
     if device.type == "cpu":
         return alu_chain_plain(x, a, n=n, op=op)
+    return _launch("alu_chain", x, a, None, n, op, device)
+
+
+def _launch(name: str, x: torch.Tensor, a: torch.Tensor, cycles: torch.Tensor | None,
+            n: int, op: str, device: torch.device) -> torch.Tensor:
+    """One launch of the kernel, timed when ``cycles`` is given."""
     out = torch.empty_like(x)
     lib = _lib()
     err = lib.alu_chain_launch(x.data_ptr(), a.data_ptr(), out.data_ptr(),
+                               None if cycles is None else cycles.data_ptr(),
                                x.numel(), n, OPS.index(op), stream_handle(device))
-    _build.check_launch(lib, "alu_chain", err)
+    _build.check_launch(lib, name, err)
     alu_chain.launches += 1
     return out
 
 
 alu_chain.launches = 0
+
+
+def alu_chain_timed(x: torch.Tensor, a: torch.Tensor, *, n: int,
+                    op: str = "fma") -> tuple[torch.Tensor, torch.Tensor]:
+    """The timed form of :func:`alu_chain`: ``(out, cycles)``, ``out`` as
+    ``alu_chain`` gives it and ``cycles`` (int64, x's shape) the SM cycles
+    between each thread's two ``%clock64`` reads around its chain.
+
+    CUDA tensors only (counted in ``alu_chain.launches``); raises for CPU
+    tensors, since there is no plain version of a cycle counter.
+    """
+    device = _check_chain("alu_chain_timed", x, a, n, op)
+    if device.type != "cuda":
+        raise RuntimeError("alu_chain_timed: the SM cycle counter exists only on a "
+                           f"CUDA card; got tensors on {device}")
+    cycles = torch.empty(x.shape, dtype=torch.int64, device=device)
+    return _launch("alu_chain_timed", x, a, cycles, n, op, device), cycles
+
+
+def sm_clock_sample(device: torch.device) -> tuple[int, int]:
+    """(SM cycles, ns of the card's global timer) over one spin of about
+    1 ms on one thread of ``device``, a CUDA device."""
+    if device.type != "cuda":
+        raise RuntimeError(f"sm_clock_sample: the SM clock exists only on a CUDA card, "
+                           f"not on {device}")
+    out = torch.zeros(2, dtype=torch.int64, device=device)
+    lib = _lib()
+    err = lib.sm_clock_launch(out.data_ptr(), 1_000_000, stream_handle(device))
+    _build.check_launch(lib, "sm_clock", err)
+    cycles, ns = out.tolist()
+    return cycles, ns

@@ -18,6 +18,9 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import check_tensors, stream_handle
 
+# the design each dtype runs on the card
+DESIGNS = {torch.int32: "one-thread pointer chase"}
+
 
 def chase_plain(ring: torch.Tensor, start: torch.Tensor, *,
                 steps: int) -> torch.Tensor:

@@ -67,6 +67,16 @@ def check_tensors(kernel: str, dtype: torch.dtype, shape: tuple[int, ...] | None
     return device
 
 
+def check_aligned(kernel: str, **tensors: torch.Tensor) -> None:
+    """Raise unless every tensor's data starts on a 16-byte boundary, as TMA
+    copies need (a fresh tensor does; a view at an odd offset may not). The
+    kernel is not run on a copy: the caller decides whether to copy."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{kernel}: {name} must start on a 16-byte boundary "
+                             f"(data_ptr {t.data_ptr():#x}); pass an aligned copy")
+
+
 def stream_handle(device: torch.device) -> int:
     """The raw ``cudaStream_t`` of PyTorch's current stream on ``device``."""
     return torch.cuda.current_stream(device).cuda_stream

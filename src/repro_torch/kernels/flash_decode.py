@@ -23,6 +23,8 @@ from repro_torch.kernels.common import (DTYPE_CODES, NEG_INF, check_tensors,
 from repro_torch.kernels.flash_attention import HEAD_DIMS, _check_shapes
 
 MAX_GROUP = 8  # query heads per KV head the kernel takes (flash_decode.cu)
+# the design each dtype runs on the card: one for both
+DESIGNS = {torch.bfloat16: "fma, block per KV head", torch.float32: "fma, block per KV head"}
 
 
 def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -21,6 +21,8 @@ from repro_torch.kernels.common import check_tensors, pick_block, stream_handle
 
 STATE_DIMS = (4, 8, 16)  # the kernel's instances of N (mamba_scan.cu)
 _SMEM_LIMIT = 48 * 1024  # staged B and C per block, without an opt-in
+# the design each dtype runs on the card
+DESIGNS = {torch.float32: "thread per channel, state in registers"}
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:

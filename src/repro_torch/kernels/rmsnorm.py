@@ -16,6 +16,9 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import DTYPE_CODES, check_tensors, stream_handle
 
+# the design each dtype runs on the card: one for both
+DESIGNS = {torch.bfloat16: "block per row", torch.float32: "block per row"}
+
 
 def rmsnorm_plain(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm in plain PyTorch: float32 throughout, w multiplied before the

@@ -24,11 +24,12 @@ import torch
 from repro_torch.api import Plan, Session
 from repro_torch.api.cli import main as cli_main
 from repro_torch.core import membench
-from repro_torch.core.timing import Timer
+from repro_torch.core.timing import Timer, sandwich_slope, sm_clock_hz
 from repro_torch.kernels import opchain
-from repro_torch.kernels.alu_chain import OPS, alu_chain, alu_chain_plain
+from repro_torch.kernels.alu_chain import OPS, alu_chain, alu_chain_plain, alu_chain_timed
 from repro_torch.kernels.chase import chase, chase_plain
-from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, flash_attention,
+                                                 flash_attention_plain)
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
 from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_plain
 from repro_torch.kernels.opchain import op_chain, op_chain_plain
@@ -71,18 +72,21 @@ def _draw(rng, dtype, shape):
     return np.asarray(rng.randint(0, 2 ** 32, shape, dtype=np.uint64).astype(np_dtype))
 
 
-@pytest.mark.parametrize("n", [1, 8, 64])
+@pytest.mark.parametrize("n", [1, 8, 45, 64])  # straight-line at 8 and 64, else a loop
 @pytest.mark.parametrize("op", OPS)
 def test_alu_chain_kernel_matches_plain(dev, op, n):
     rng = np.random.RandomState(0)
     x = torch.from_numpy(rng.uniform(0.5, 1.5, (8, 128)).astype(np.float32)).to(dev)
     a = torch.from_numpy(rng.uniform(0.75, 1.25, (8, 128)).astype(np.float32)).to(dev)
+    want = alu_chain_plain(x.cpu(), a.cpu(), n=n, op=op)
     before = alu_chain.launches
     got = alu_chain(x, a, n=n, op=op)
+    timed, cycles = alu_chain_timed(x, a, n=n, op=op)  # the form the probe runs
     torch.cuda.synchronize()
-    assert alu_chain.launches == before + 1
-    torch.testing.assert_close(got.cpu(), alu_chain_plain(x.cpu(), a.cpu(), n=n, op=op),
-                               rtol=ALU_RTOL, atol=0)
+    assert alu_chain.launches == before + 2
+    for out in (got, timed):
+        torch.testing.assert_close(out.cpu(), want, rtol=ALU_RTOL, atol=0)
+    assert bool((cycles > 0).all())
 
 
 @pytest.mark.parametrize("shape", [(), (8, 128), (3, 1000)])
@@ -135,9 +139,24 @@ def test_session_runs_kernel_and_memory_probes_on_card(dev, tmp_path):
     result = session.run(plan)
     assert not result.failed, [r.failure for r in result.failed]
     for rec in result.records():
-        assert rec.backend == "cuda" and "clock=events" in rec.notes
+        # the in-kernel chain is timed by the clock sandwich, the rest by events
+        clock = "clock=sm_clock64@" if rec.op.startswith("kernel.") else "clock=events"
+        assert rec.backend == "cuda" and clock in rec.notes
         assert rec.jax_version.startswith("torch-") and "+cu" in rec.jax_version
     assert session.run(plan).summary().startswith("0 measured, 4 cached")
+
+
+def test_clock_sandwich_resolves_the_fma_chain(dev):
+    hz = sm_clock_hz(dev)
+    assert 0.5e9 < hz < 2.5e9
+    x = torch.full((8, 128), 1.0, device=dev)
+    a = torch.full((8, 128), 0.5, device=dev)
+    out, cycles = alu_chain_timed(x, a, n=64)
+    assert torch.equal(out, alu_chain(x, a, n=64))
+    assert cycles.dtype == torch.int64 and cycles.shape == x.shape and bool((cycles > 0).all())
+    for _ in range(5):
+        m = sandwich_slope(lambda n: lambda: alu_chain_timed(x, a, n=n)[1], 8, 64, clock_hz=hz)
+        assert m.median_ns > 0   # a non-positive slope raises NoisySlopeError
 
 
 def test_cli_defaults_to_the_card(dev, tmp_path, capsys):
@@ -186,6 +205,39 @@ def test_flash_attention_kernel_matches_plain(dev, b, sq, sk, h, kh, d, causal, 
     _hold(got, want)
     if causal and sq > sk:
         assert torch.all(got[:, :sq - sk].float() == 0)
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("b,sq,sk,h,kh,causal", [
+    (1, 200, 200, 4, 4, True),     # g = 1, Sq not a multiple of 64
+    (2, 100, 37, 8, 2, True),      # g = 4, Sq > Sk: rows that see no key are 0
+    (1, 130, 300, 8, 1, True),     # g = 8, a prefix (Sq < Sk)
+    (2, 77, 150, 8, 2, False),     # non-causal, neither a multiple of 64
+])
+def test_flash_attention_bf16_tensor_core_design(dev, b, sq, sk, h, kh, causal, d):
+    q = _randn(dev, b, sq, h, d, dtype=torch.bfloat16, seed=15)
+    k = _randn(dev, b, sk, kh, d, dtype=torch.bfloat16, seed=16)
+    v = _randn(dev, b, sk, kh, d, dtype=torch.bfloat16, seed=17)
+    got = flash_attention(q, k, v, causal=causal)
+    _hold(got, flash_attention_plain(q, k, v, causal=causal))
+    if causal and sq > sk:
+        assert torch.all(got[:, :sq - sk].float() == 0)
+    assert torch.equal(flash_attention(q, k, v, causal=causal), got)  # no atomics
+
+
+def test_flash_attention_bf16_refuses_a_misaligned_view(dev):
+    """TMA reads from 16-byte aligned bases: a view 2 bytes in is refused,
+    not copied and not run through the plain version."""
+    base = _randn(dev, 1 * 64 * 4 * 64 + 8, dtype=torch.bfloat16, seed=21)
+    aligned, odd = base[8:].view(1, 64, 4, 64), base[1:1 + 64 * 4 * 64].view(1, 64, 4, 64)
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        flash_attention(odd, aligned, aligned)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        flash_attention(aligned, aligned, odd)
+    assert flash_attention.launches == before
+    _hold(flash_attention(aligned, aligned, aligned),
+          flash_attention_plain(aligned, aligned, aligned))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
