@@ -11,9 +11,11 @@ Phases, each of which must pass:
    one nvcc per source, all at once, print ptxas's register and spill
    lines, and check that the SASS of the built libraries shows what each
    design promises: HGMMA (or HMMA) and UTMALDG (or LDGSTS) in K5's four
-   bf16 instances, and in K1's timed fma chain at n 64 a clock read before
-   the first of its 64 FFMAs and one after the last, with no branch
-   between them (counts printed);
+   bf16 instances; 128-bit cp.async copies (LDGSTS .128) in each of K6's
+   split-KV instances and 128-bit loads and stores (LDG.E.128, STG.E.128)
+   in each of K4's vector instances; and in K1's timed fma chain at n 64 a
+   clock read before the first of its 64 FFMAs and one after the last,
+   with no branch between them (counts printed);
 2. hold each kernel against its plain PyTorch version on the card: K1-K3 at
    the quick plan's shapes and one larger shape (alu_chain within rtol
    1e-5, in both its forms, the timed one's cycles all positive; op_chain
@@ -26,7 +28,12 @@ Phases, each of which must pass:
    bf16 cases: Jamba causal, a prefix (Sq 512 < Sk 2048), Sq 100 > Sk 37
    (whose 63 rows that see no key must be exactly 0), D 64 non-causal, and
    Sq 1000, Sk 1937 (not multiples of 64); SDPA's own error on the Jamba
-   case is printed beside them, as a datum;
+   case is printed beside them, as a datum. K6's cases: the ragged batch
+   of 8, a batch-1 cache of 32768 keys, kv_len at a split's edges (511,
+   512, 513, ...) and a float32 ragged batch, each row of kv_len 0 exactly
+   0; K4's: D 4096, 1000 and 4100 (not a multiple of 8: the scalar
+   instance), and x 2 bytes off a 16-byte boundary; the design each case
+   runs is printed;
 3. run ``characterize --plan quick`` through the port's CLI, with every
    kernel's launch count set to 0 just before and read just after; the run
    must measure every row of the plan, with no failure, and launch K1-K3;
@@ -40,7 +47,10 @@ Phases, each of which must pass:
 5. time each kernel, its plain version, its bound and, where one PyTorch
    call computes the same function, that call, at the shapes the main
    paths give it (K1 in its timed form, as the quick plan runs it on the
-   card; K4-K7 also at the Jamba shapes, K5 in both dtypes); count
+   card; K4-K7 also at the Jamba shapes, K5 in both dtypes, K6 also at the
+   batch-1 cache of 32768 keys, and there at g = 1, 2, 4 and 8 query heads
+   a KV head, a datum on the share of its arithmetic; and the device time
+   of K6's split and combine passes from torch.profiler); count
    non-positive slopes of the host clock, of CUDA events and of the SM clock sandwich
    over repeated trials (the sandwich, which times the quick plan's
    kernel.alu_chain.fma row, must have none), print the calibrated SM
@@ -255,13 +265,24 @@ def jamba_inputs(dev: torch.device) -> dict[str, tuple]:
     def randn(*shape, dtype=torch.float32, scale=1.0):
         return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
 
+    def lens(*n):
+        return torch.tensor(n, dtype=torch.int32, device=dev)
+
     bf16 = torch.bfloat16
-    kv_len = torch.tensor([8192, 8191, 4097, 4096, 1000, 129, 1, 0], dtype=torch.int32,
-                          device=dev)
+    kv_len = lens(8192, 8191, 4097, 4096, 1000, 129, 1, 0)
+    x_off = randn(2048 * 4096 + 8, dtype=bf16)[1:1 + 2048 * 4096].view(2048, 4096)
     return {
         "rmsnorm bf16 x[2048,4096]": (
             "rmsnorm", (randn(2048, 4096, dtype=bf16),
                         (1.0 + randn(4096, scale=0.1)).to(bf16)), {}),
+        "rmsnorm bf16 x[2048,1000]": (
+            "rmsnorm", (randn(2048, 1000, dtype=bf16),
+                        (1.0 + randn(1000, scale=0.1)).to(bf16)), {}),
+        "rmsnorm bf16 x[2048,4100]": (
+            "rmsnorm", (randn(2048, 4100, dtype=bf16),
+                        (1.0 + randn(4100, scale=0.1)).to(bf16)), {}),
+        "rmsnorm bf16 x[2048,4096] 2 bytes off a 16-byte boundary": (
+            "rmsnorm", (x_off, (1.0 + randn(4096, scale=0.1)).to(bf16)), {}),
         "flash_attention bf16 causal q[1,2048,32,128] kv[1,2048,8,128]": (
             "flash_attention", (randn(1, 2048, 32, 128, dtype=bf16),
                                 randn(1, 2048, 8, 128, dtype=bf16),
@@ -290,6 +311,20 @@ def jamba_inputs(dev: torch.device) -> dict[str, tuple]:
             "flash_decode", (randn(8, 32, 128, dtype=bf16),
                              randn(8, 8192, 8, 128, dtype=bf16),
                              randn(8, 8192, 8, 128, dtype=bf16), kv_len), {}),
+        DECODE_LONG: (
+            "flash_decode", (randn(1, 32, 128, dtype=bf16),
+                             randn(1, 32768, 8, 128, dtype=bf16),
+                             randn(1, 32768, 8, 128, dtype=bf16), lens(32768)), {}),
+        "flash_decode bf16 q[7,32,128] kv[7,1536,8,128] kv_len "
+        "(511,512,513,1023,1024,1025,0)": (
+            "flash_decode", (randn(7, 32, 128, dtype=bf16),
+                             randn(7, 1536, 8, 128, dtype=bf16),
+                             randn(7, 1536, 8, 128, dtype=bf16),
+                             lens(511, 512, 513, 1023, 1024, 1025, 0)), {}),
+        "flash_decode f32 q[8,32,128] kv[8,8192,8,128] kv_len "
+        "(8192,8191,4097,4096,1000,129,1,0)": (
+            "flash_decode", (randn(8, 32, 128), randn(8, 8192, 8, 128),
+                             randn(8, 8192, 8, 128), kv_len), {}),
         "mamba_scan f32 x,dt[1,2048,8192] N 16 chunk 64": (
             "mamba_scan", (randn(1, 2048, 8192, scale=0.5), randn(1, 2048, 8192, scale=0.1),
                            -torch.exp(randn(8192, 16, scale=0.3)),
@@ -298,10 +333,17 @@ def jamba_inputs(dev: torch.device) -> dict[str, tuple]:
     }
 
 
-# The float32 case of K5 at Jamba widths, timed beside the bf16 one: each
-# dtype runs its own design (DESIGNS: wgmma for bf16, FMA for float32).
-JAMBA_TIMED_F32 = {
-    "flash_attention": "flash_attention f32 causal q[1,2048,32,128] kv[1,2048,8,128]",
+# K6's batch-1 cache of 32768 keys, where the split over the sequence
+# matters most (64 splits for each of the 8 KV heads).
+DECODE_LONG = "flash_decode bf16 q[1,32,128] kv[1,32768,8,128] kv_len 32768"
+
+# A second case timed beside the Jamba one, under its key in the kernels
+# line: K5 in float32 (each dtype runs its own design: wgmma for bf16, FMA
+# for float32); K6 at the batch-1 cache.
+JAMBA_TIMED_MORE = {
+    "flash_attention": ("jamba_f32",
+                        "flash_attention f32 causal q[1,2048,32,128] kv[1,2048,8,128]"),
+    "flash_decode": ("jamba_long", DECODE_LONG),
 }
 
 # K5's case whose first Sq - Sk = 63 query rows see no key: they must be 0.
@@ -315,6 +357,26 @@ JAMBA_TIMED = {
                     "(8192,8191,4097,4096,1000,129,1,0)",
     "mamba_scan": "mamba_scan f32 x,dt[1,2048,8192] N 16 chunk 64",
 }
+
+
+def case_design(name: str, args: tuple) -> str:
+    """The instance K4 or K6 runs for these inputs (empty for the others)."""
+    if name == "rmsnorm":
+        from repro_torch.kernels.rmsnorm import rmsnorm_plan
+
+        x, w = args
+        aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+        return rmsnorm_plan(x.shape[-1], x.dtype, aligned).design
+    if name == "flash_decode":
+        from repro_torch.kernels.flash_decode import KEYS_PER_SPLIT, split_count
+
+        q, k, _, kv_len = args
+        n, kh = split_count(k.shape[1]), k.shape[2]
+        live = sum(split_count(t) for t in kv_len.clamp(0, k.shape[1]).tolist() if t > 0)
+        return (f"split-KV, {n} split(s) of {KEYS_PER_SPLIT} keys a row, {live * kh} "
+                f"live blocks of {n * kh * q.shape[0]}, "
+                + ("a combine pass" if n > 1 else "no combine pass"))
+    return ""
 
 
 def fused_modules() -> dict:
@@ -355,6 +417,16 @@ def check_fused_kernels(dev: torch.device, cases: dict) -> tuple[dict, dict]:
         got = wrapper(*args, **kw)
         e, ratio = hold(f"{name} Jamba {label}", got, plain(*args, **kw))
         jamba[label] = {"max_abs_err": e, "err_over_limit": ratio}
+        design = case_design(name, args)
+        if design:
+            print(f"  {label}: design {design}")
+            jamba[label]["design"] = design
+        if name == "flash_decode":
+            empty = (args[3] <= 0).nonzero().flatten().tolist()
+            if not bool((got[empty] == 0).all()):
+                fail(f"{label}: a row of kv_len 0 is not exactly 0")
+            if empty:
+                print(f"  {label}: the rows of kv_len 0 ({empty}) are exactly 0")
         if label == SEES_NO_KEY:
             blind = args[0].shape[1] - args[1].shape[1]
             if not bool((got[:, :blind] == 0).all()):
@@ -535,7 +607,7 @@ def time_fused(dev: torch.device, err: dict, jamba: dict, cases: dict,
     """Phase 5, K4-K7: the kernel (CUDA events behind a lead), its plain
     version (wall time to completion), its bound and the library call, at
     the fused plan's larger unit workload (n = 6) and at the Jamba case
-    (K5 also at its float32 Jamba case)."""
+    (and at the second case of JAMBA_TIMED_MORE)."""
     from repro_torch.core.timing import Timer
     from repro_torch.inkernel import (FUSED_KERNELS, FUSED_LENS, build_fused, fused_kwargs,
                                       unit_bytes)
@@ -575,17 +647,68 @@ def time_fused(dev: torch.device, err: dict, jamba: dict, cases: dict,
         big = measure(name, jargs, jkw, f"Jamba {label}")
         big.update(jamba[label], shape=label)
         extra = {}
-        if name in JAMBA_TIMED_F32:
-            flabel = JAMBA_TIMED_F32[name]
-            _, fargs, fkw = cases[flabel]
-            extra["jamba_f32"] = measure(name, fargs, fkw, f"Jamba {flabel}")
-            extra["jamba_f32"].update(jamba[flabel], shape=flabel)
+        if name == "flash_decode":
+            extra["g_sweep_ms"] = decode_group_sweep(timer, cases)
+            extra["pass_us"] = decode_passes(cases)
+        if name in JAMBA_TIMED_MORE:
+            key, mlabel = JAMBA_TIMED_MORE[name]
+            _, margs, mkw = cases[mlabel]
+            extra[key] = measure(name, margs, mkw, f"Jamba {mlabel}")
+            extra[key].update(jamba[mlabel], shape=mlabel)
         print(f"{name}: {launches[name]} launches on the fused path")
         out.append({"name": name, "route": "cuda",
                     "source": f"src/repro_torch/csrc/{name}.cu",
                     "replaces": replaces[name], "design": designs(name),
                     "launches": launches[name],
                     "max_abs_err": err[name], **unit, "jamba": big, **extra})
+    return out
+
+
+def decode_group_sweep(timer, cases: dict) -> dict[int, float]:
+    """A datum: K6 on DECODE_LONG's cache with g = 1, 2, 4 and 8 query
+    heads a KV head, the same K and V bytes under g times the arithmetic,
+    so how much of the time the FMAs take shows against g = 1."""
+    from repro_torch.kernels.flash_decode import flash_decode
+
+    _, (q, k, v, kv_len), _ = cases[DECODE_LONG]
+    gen = torch.Generator(device=q.device).manual_seed(1)
+    out = {}
+    for g in (1, 2, 4, 8):
+        qg = torch.randn(q.shape[0], k.shape[2] * g, q.shape[2], generator=gen,
+                         device=q.device).to(q.dtype)
+        out[g] = timer.time_callable(lambda: flash_decode(qg, k, v, kv_len)).median_ns / 1e6
+    print(f"flash_decode g sweep [{DECODE_LONG}]: "
+          + ", ".join(f"g {g} {ms:.6f} ms" for g, ms in out.items()))
+    return out
+
+
+def decode_passes(cases: dict, reps: int = 20) -> dict[str, dict[str, float]]:
+    """A datum: the device time of K6's two passes (the split-KV pass and
+    the combine) at its two timed cases, from torch.profiler's trace of
+    ``reps`` calls, in us a call; "not measured" when the trace holds no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash_decode import flash_decode
+
+    out = {}
+    for label in (JAMBA_TIMED["flash_decode"], DECODE_LONG):
+        args = cases[label][1]
+        flash_decode(*args)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flash_decode(*args)
+            torch.cuda.synchronize()
+        us = {}
+        for e in prof.key_averages():
+            for kernel in ("decode_split_kernel", "decode_combine_kernel"):
+                if kernel in e.key:
+                    us[kernel] = getattr(e, "device_time_total", 0) / reps
+        out[label] = us
+        print(f"flash_decode passes [{label}]: "
+              + (", ".join(f"{k} {v:.3f} us" for k, v in us.items()) if any(us.values())
+                 else "not measured (no device time in the trace)"))
     return out
 
 
@@ -720,9 +843,12 @@ def clock_study(dev: torch.device, trials: int = 20, reps: int = 5) -> None:
 def sass_checks(build: Path) -> None:
     """What each design promises, in the SASS of the built libraries (counts
     printed; a missing one fails): K5's bf16 instances run HGMMA (wgmma; or
-    HMMA, mma.sync) fed by UTMALDG (TMA; or LDGSTS, cp.async); K1's timed
-    fma chain at n 64 reads the clock before the first of its 64 FFMAs and
-    after the last, with no branch between the reads."""
+    HMMA, mma.sync) fed by UTMALDG (TMA; or LDGSTS, cp.async); each of K6's
+    32 split-KV instances copies K and V by 128-bit cp.async (LDGSTS with
+    .128); each of K4's 16 vector instances (float32 E 4, bfloat16 E 8)
+    loads by LDG.E.128 and stores by STG.E.128; K1's timed fma chain at
+    n 64 reads the clock before the first of its 64 FFMAs and after the
+    last, with no branch between the reads."""
     import re
 
     from repro_torch.kernels import _build
@@ -753,6 +879,37 @@ def sass_checks(build: Path) -> None:
             fail(f"K5 bf16 instance {name}: {counts} in its SASS")
         print(f"sass: K5 {name.split('wgmma_kernel')[-1][:12]}: "
               + ", ".join(f"{n} {o}" for o, n in counts.items()) + f", {len(body)} instructions")
+
+    def wide(body: list[str], prefix: str) -> int:
+        """Instructions of ``body`` whose mnemonic starts with ``prefix`` and
+        has a .128 modifier (LDGSTS.E.BYPASS.LTC128B.128, LDG.E.128, ...)."""
+        found = (re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", ln)
+                 for ln in body)
+        return sum(m is not None and m.group(1).startswith(prefix)
+                   and "128" in m.group(1).split(".")[1:] for m in found)
+
+    split = {n: b for n, b in functions("flash_decode").items() if "decode_split_kernelI" in n}
+    if len(split) != 32:
+        fail(f"expected 32 split-KV instances of K6 in the SASS, found {len(split)}")
+    for name, body in sorted(split.items()):
+        counts = {"LDGSTS.128": wide(body, "LDGSTS"), "LDG.E.128": wide(body, "LDG.E"),
+                  "LDS.128": wide(body, "LDS")}
+        if not counts["LDGSTS.128"]:
+            fail(f"K6 split-KV instance {name}: no 128-bit cp.async in its SASS ({counts})")
+        inst = re.search(r"decode_split_kernelI(.*?)EEv", name).group(1)
+        print(f"sass: K6 {inst}: " + ", ".join(f"{n} {o}" for o, n in counts.items())
+              + f", {len(body)} instructions")
+    vector = {n: b for n, b in functions("rmsnorm").items()
+              if re.search(r"rmsnorm_kernelI(fLi4E|13__nv_bfloat16Li8E)", n)}
+    if len(vector) != 16:
+        fail(f"expected 16 vector instances of K4 in the SASS, found {len(vector)}")
+    for name, body in sorted(vector.items()):
+        counts = {"LDG.E.128": wide(body, "LDG.E"), "STG.E.128": wide(body, "STG.E")}
+        if not (counts["LDG.E.128"] and counts["STG.E.128"]):
+            fail(f"K4 vector instance {name}: {counts} in its SASS")
+        inst = re.search(r"rmsnorm_kernelI(.*?)EEv", name).group(1)
+        print(f"sass: K4 {inst}: " + ", ".join(f"{n} {o}" for o, n in counts.items())
+              + f", {len(body)} instructions")
     # alu_chain_kernel<op 0 (fma), N 64, timed>
     (timed,) = [body for n, body in functions("alu_chain").items()
                 if "alu_chain_kernelILi0ELi64ELb1E" in n]

@@ -172,12 +172,18 @@ def test_cli_defaults_to_the_card(dev, tmp_path, capsys):
 DTYPES = [torch.float32, torch.bfloat16]
 
 
+@pytest.mark.parametrize("offset", [0, 1])  # elements: 1 puts x off a 16-byte boundary
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(64, 128), (96, 256), (256, 64), (3, 1000),
-                                   (2, 5, 4096)])
-def test_rmsnorm_kernel_matches_plain(dev, shape, dtype):
-    x = _randn(dev, *shape, dtype=dtype, seed=1)
+                                   (2, 5, 4096), (5, 7), (3, 4100), (2, 8192), (2, 9000)])
+def test_rmsnorm_kernel_matches_plain(dev, shape, dtype, offset):
+    """Every instance rmsnorm_plan picks: 16-byte vectors or scalars (D 7,
+    bf16 D 4100, and x 2 or 4 bytes off a 16-byte boundary), a warp or a
+    block per row, and a row longer than the registers (D 9000)."""
+    n = int(np.prod(shape))
+    x = _randn(dev, n + 8, dtype=dtype, seed=1)[offset:offset + n].view(shape)
     w = _randn(dev, shape[-1], dtype=dtype, seed=2)
+    assert (x.data_ptr() % 16 == 0) == (offset == 0)
     before = rmsnorm.launches
     got = rmsnorm(x, w)
     assert rmsnorm.launches == before + 1
@@ -245,8 +251,16 @@ def test_flash_attention_bf16_refuses_a_misaligned_view(dev):
     (2, 256, 8, 2, 64, (256, 243)), (3, 128, 4, 4, 32, (128, 115, 102)),
     (1, 512, 2, 1, 128, (512,)), (2, 64, 8, 1, 16, (64, 0)),
     (4, 1000, 32, 8, 128, (1000, 999, 1, 0)),
+    (1, 4608, 32, 8, 128, (4608,)),                  # batch 1, 9 splits
+    (5, 1537, 8, 2, 64, (511, 512, 513, 1537, 0)),   # lengths at split boundaries
+    (2, 1100, 4, 4, 32, (1100, 700)),                # g = 1
+    (2, 1100, 16, 2, 128, (1100, 513)),              # g = 8
+    (3, 300, 12, 2, 16, (300, 0, 1)),                # one split (S <= 512), g = 6
 ])
 def test_flash_decode_kernel_matches_plain(dev, b, s, h, kh, d, lens, dtype):
+    """Split-KV (512 keys a split; one split writes the output itself, more
+    are merged by a second pass): within the row-scaled limit, kv_len = 0
+    rows exactly 0, and two calls give the same bits (no atomics)."""
     q = _randn(dev, b, h, d, dtype=dtype, seed=6)
     k = _randn(dev, b, s, kh, d, dtype=dtype, seed=7)
     v = _randn(dev, b, s, kh, d, dtype=dtype, seed=8)
@@ -258,6 +272,7 @@ def test_flash_decode_kernel_matches_plain(dev, b, s, h, kh, d, lens, dtype):
     for i, n in enumerate(lens):
         if n == 0:
             assert torch.all(got[i].float() == 0)
+    assert torch.equal(flash_decode(q, k, v, kv_len), got)
 
 
 @pytest.mark.parametrize("b,s,dm,n,chunk", [
@@ -288,6 +303,9 @@ def test_fused_kernels_refuse_what_they_have_no_instance_for(dev):
                    torch.zeros(1, 8, 5, device=dev), torch.zeros(4, device=dev))
     with pytest.raises(ValueError, match="kv_len on"):
         flash_decode(torch.zeros(1, 2, 16, device=dev), kv, kv, kv_len.cpu())
+    odd = torch.zeros(1 * 8 * 1 * 16 + 1, device=dev)[1:].view(1, 8, 1, 16)
+    with pytest.raises(ValueError, match="16-byte boundary"):  # cp.async reads 16 bytes
+        flash_decode(torch.zeros(1, 2, 16, device=dev), odd, kv, kv_len)
 
 
 def test_fused_plan_runs_every_kernel_on_the_card(dev, tmp_path):
