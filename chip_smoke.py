@@ -11,11 +11,14 @@ Phases, each of which must pass:
    one nvcc per source, all at once, print ptxas's register and spill
    lines, and check that the SASS of the built libraries shows what each
    design promises: HGMMA (or HMMA) and UTMALDG (or LDGSTS) in K5's four
-   bf16 instances; 128-bit cp.async copies (LDGSTS .128) in each of K6's
+   bf16 instances; TF32 HMMAs and cp.async copies (LDGSTS) in K5's four
+   float32 instances; cp.async copies and MUFU.EX2 in each of K7's six
+   instances; 128-bit cp.async copies (LDGSTS .128) in each of K6's
    split-KV instances and 128-bit loads and stores (LDG.E.128, STG.E.128)
    in each of K4's vector instances; and in K1's timed fma chain at n 64 a
    clock read before the first of its 64 FFMAs and one after the last,
-   with no branch between them (counts printed);
+   with no branch between them (counts printed); and ptxas must report 0
+   spill bytes for each instance of K5 float32 and of K7;
 2. hold each kernel against its plain PyTorch version on the card: K1-K3 at
    the quick plan's shapes and one larger shape (alu_chain within rtol
    1e-5, in both its forms, the timed one's cycles all positive; op_chain
@@ -24,11 +27,15 @@ Phases, each of which must pass:
    8 KV heads, head dim 128, Mamba Dm 8192, N 16, chunk 64), every element
    within ``tol * (|want| + rms(want's row))``, tol 2^-7 in bfloat16 (one
    rounding of the output) and 2^-13 in float32; a control that
-   accumulates p . v in bfloat16 must fail that limit for K5 and K6. K5's
-   bf16 cases: Jamba causal, a prefix (Sq 512 < Sk 2048), Sq 100 > Sk 37
-   (whose 63 rows that see no key must be exactly 0), D 64 non-causal, and
-   Sq 1000, Sk 1937 (not multiples of 64); SDPA's own error on the Jamba
-   case is printed beside them, as a datum. K6's cases: the ragged batch
+   accumulates p . v in bfloat16 must fail that limit for K5 and K6, and
+   one that takes each of K5's float32 products once in TF32 must fail the
+   float32 limit. K5's cases, in bf16: Jamba causal, a prefix (Sq 512 <
+   Sk 2048), Sq 100 > Sk 37 (whose 63 rows that see no key must be exactly
+   0), D 64 non-causal, and Sq 1000, Sk 1937 (not multiples of 64); in
+   float32: Jamba causal, Sq 100 > Sk 37, D 64 non-causal and Sq 1000,
+   Sk 1937; SDPA's own error on the Jamba bf16 case is printed beside them,
+   as a datum. K7's: Jamba, and Dm 1000 at batch 2 with chunk 7, whose
+   final state h is held too. K6's cases: the ragged batch
    of 8, a batch-1 cache of 32768 keys, kv_len at a split's edges (511,
    512, 513, ...) and a float32 ragged batch, each row of kv_len 0 exactly
    0; K4's: D 4096, 1000 and 4100 (not a multiple of 8: the scalar
@@ -44,8 +51,14 @@ Phases, each of which must pass:
    rmsnorm row may end as a NoisySlopeError failure (its row blocks run in
    parallel, so its slope is near the clock's resolution), and the script
    prints which;
-5. time each kernel, its plain version, its bound and, where one PyTorch
-   call computes the same function, that call, at the shapes the main
+5. time each kernel, its plain version, its bound (the larger of bytes
+   and operations; K5 float32's operations at the least of float32 FMAs,
+   3xTF32 and 3xBF16 on the tensor cores, the choice printed; K7's at its
+   float32 operations, its exponentials on the SFU alone printed beside
+   them; K7 also in 4-byte copies, on its inputs and on inputs 4 bytes
+   off a 16-byte boundary) and,
+   where one PyTorch call computes the same function, that call, at the
+   shapes the main
    paths give it (K1 in its timed form, as the quick plan runs it on the
    card; K4-K7 also at the Jamba shapes, K5 in both dtypes, K6 also at the
    batch-1 cache of 32768 keys, and there at g = 1, 2, 4 and 8 query heads
@@ -84,6 +97,11 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12     # non-tensor float32; also used for int32 ops
 BF16_OPS_PER_S = 989e12    # dense bf16 on the tensor cores
+TF32_OPS_PER_S = 495e12    # dense TF32 on the tensor cores
+# MUFU (ex2, lg2, ...): 16 results a clock an SM (CUDA C++ programming
+# guide, arithmetic instruction throughput, compute capability 9.0) x 132
+# SMs x 1980 MHz, the H100 SXM's boost clock
+MUFU_OPS_PER_S = 16 * 132 * 1.98e9
 ALU_RTOL = 1e-5
 # Row-scaled limits for K4-K7 on the card: |got - want| <= tol * (|want| +
 # rms(want's row)). bf16: one rounding of the output (half an ulp is 2^-9
@@ -235,6 +253,35 @@ def attention_bf16_acc(q, k, v, *, causal: bool):
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
 
 
+def tf32_truncate(x: torch.Tensor) -> torch.Tensor:
+    """x with its 13 low mantissa bits cleared: what mma reads of a raw
+    float32 register (TF32, truncated)."""
+    return (x.float().contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def attention_1xtf32(q, k, v, *, causal: bool):
+    """Control: flash_attention_plain with one TF32 product each in
+    S = (q scale) . K^T and P . V: q scale, k, p and v truncated to TF32 by
+    bit masking (the float32 einsums then multiply them exactly), l summed
+    from float32 p."""
+    from repro_torch.kernels.common import NEG_INF
+
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    qs = tf32_truncate(q.float().reshape(b, sq, kh, h // kh, d) * d ** -0.5)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qs, tf32_truncate(k))
+    if causal:
+        mask = (torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+                >= torch.arange(sk, device=q.device)[None, :])
+        s = s.masked_fill(~mask, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    if causal:
+        p = p.masked_fill(~mask, 0.0)
+    out = torch.einsum("bkgqs,bskd->bkgqd", tf32_truncate(p), tf32_truncate(v))
+    out = out / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+
+
 def decode_bf16_acc(q, k, v, kv_len):
     """Control: flash_decode_plain with p . v accumulated key by key in
     bfloat16, l in float32."""
@@ -306,6 +353,15 @@ def jamba_inputs(dev: torch.device) -> dict[str, tuple]:
             "flash_attention", (randn(1, 1000, 32, 128, dtype=bf16),
                                 randn(1, 1937, 8, 128, dtype=bf16),
                                 randn(1, 1937, 8, 128, dtype=bf16)), {"causal": True}),
+        SEES_NO_KEY_F32: (
+            "flash_attention", (randn(1, 100, 32, 128), randn(1, 37, 8, 128),
+                                randn(1, 37, 8, 128)), {"causal": True}),
+        "flash_attention f32 non-causal q[1,2048,32,64] kv[1,2048,8,64]": (
+            "flash_attention", (randn(1, 2048, 32, 64), randn(1, 2048, 8, 64),
+                                randn(1, 2048, 8, 64)), {"causal": False}),
+        "flash_attention f32 causal ragged q[1,1000,32,128] kv[1,1937,8,128]": (
+            "flash_attention", (randn(1, 1000, 32, 128), randn(1, 1937, 8, 128),
+                                randn(1, 1937, 8, 128)), {"causal": True}),
         "flash_decode bf16 q[8,32,128] kv[8,8192,8,128] kv_len "
         "(8192,8191,4097,4096,1000,129,1,0)": (
             "flash_decode", (randn(8, 32, 128, dtype=bf16),
@@ -330,6 +386,11 @@ def jamba_inputs(dev: torch.device) -> dict[str, tuple]:
                            -torch.exp(randn(8192, 16, scale=0.3)),
                            randn(1, 2048, 16, scale=0.5), randn(1, 2048, 16, scale=0.5),
                            randn(8192, scale=0.1)), {"chunk": 64}),
+        SCAN_STATE: (
+            "mamba_scan", (randn(2, 2048, 1000, scale=0.5), randn(2, 2048, 1000, scale=0.1),
+                           -torch.exp(randn(1000, 16, scale=0.3)),
+                           randn(2, 2048, 16, scale=0.5), randn(2, 2048, 16, scale=0.5),
+                           randn(1000, scale=0.1)), {"chunk": 7, "return_state": True}),
     }
 
 
@@ -338,16 +399,21 @@ def jamba_inputs(dev: torch.device) -> dict[str, tuple]:
 DECODE_LONG = "flash_decode bf16 q[1,32,128] kv[1,32768,8,128] kv_len 32768"
 
 # A second case timed beside the Jamba one, under its key in the kernels
-# line: K5 in float32 (each dtype runs its own design: wgmma for bf16, FMA
-# for float32); K6 at the batch-1 cache.
+# line: K5 in float32 (each dtype runs its own design: wgmma for bf16,
+# 3xTF32 mma.sync for float32); K6 at the batch-1 cache.
 JAMBA_TIMED_MORE = {
     "flash_attention": ("jamba_f32",
                         "flash_attention f32 causal q[1,2048,32,128] kv[1,2048,8,128]"),
     "flash_decode": ("jamba_long", DECODE_LONG),
 }
 
-# K5's case whose first Sq - Sk = 63 query rows see no key: they must be 0.
+# K5's cases whose first Sq - Sk = 63 query rows see no key: they must be 0.
 SEES_NO_KEY = "flash_attention bf16 causal q[1,100,32,128] kv[1,37,8,128]"
+SEES_NO_KEY_F32 = "flash_attention f32 causal q[1,100,32,128] kv[1,37,8,128]"
+
+# K7 at Dm 1000 (not a multiple of a block's 64 channels), batch 2, also
+# returning its final state h [2, 1000, 16].
+SCAN_STATE = "mamba_scan f32 x,dt[2,2048,1000] N 16 chunk 7 return_state"
 
 # The case of each fused kernel that chip_smoke times at Jamba widths.
 JAMBA_TIMED = {
@@ -376,6 +442,11 @@ def case_design(name: str, args: tuple) -> str:
         return (f"split-KV, {n} split(s) of {KEYS_PER_SPLIT} keys a row, {live * kh} "
                 f"live blocks of {n * kh * q.shape[0]}, "
                 + ("a combine pass" if n > 1 else "no combine pass"))
+    if name == "mamba_scan":
+        from repro_torch.kernels.mamba_scan import scan_vectorized
+
+        x, dt, _, b, c, _ = args
+        return ("16-byte" if scan_vectorized(x, dt, b, c) else "4-byte") + " copies"
     return ""
 
 
@@ -414,9 +485,14 @@ def check_fused_kernels(dev: torch.device, cases: dict) -> tuple[dict, dict]:
     for label, (name, args, kw) in cases.items():
         wrapper = getattr(mods[name], name)
         plain = getattr(mods[name], f"{name}_plain")
-        got = wrapper(*args, **kw)
-        e, ratio = hold(f"{name} Jamba {label}", got, plain(*args, **kw))
+        got, want = wrapper(*args, **kw), plain(*args, **kw)
+        if kw.get("return_state"):  # (y, h): the final state is held too
+            (got, h), (want, want_h) = got, want
+            e_h, ratio_h = hold(f"{name} Jamba {label}, final state h", h, want_h)
+        e, ratio = hold(f"{name} Jamba {label}", got, want)
         jamba[label] = {"max_abs_err": e, "err_over_limit": ratio}
+        if kw.get("return_state"):
+            jamba[label].update(state_max_abs_err=e_h, state_err_over_limit=ratio_h)
         design = case_design(name, args)
         if design:
             print(f"  {label}: design {design}")
@@ -427,24 +503,29 @@ def check_fused_kernels(dev: torch.device, cases: dict) -> tuple[dict, dict]:
                 fail(f"{label}: a row of kv_len 0 is not exactly 0")
             if empty:
                 print(f"  {label}: the rows of kv_len 0 ({empty}) are exactly 0")
-        if label == SEES_NO_KEY:
+        if label in (SEES_NO_KEY, SEES_NO_KEY_F32):
             blind = args[0].shape[1] - args[1].shape[1]
             if not bool((got[:, :blind] == 0).all()):
                 fail(f"{label}: a query row that sees no key is not exactly 0")
             print(f"  {label}: the {blind} rows that see no key are exactly 0")
-    controls = {
-        "flash_attention": lambda a, kw: attention_bf16_acc(*a, **kw),
-        "flash_decode": lambda a, kw: decode_bf16_acc(*a),
+    controls = {  # label: (kernel, what the control does, the control)
+        JAMBA_TIMED["flash_attention"]: (
+            "flash_attention", "p.v accumulated in bf16",
+            lambda a, kw: attention_bf16_acc(*a, **kw)),
+        JAMBA_TIMED["flash_decode"]: (
+            "flash_decode", "p.v accumulated in bf16", lambda a, kw: decode_bf16_acc(*a)),
+        JAMBA_TIMED_MORE["flash_attention"][1]: (
+            "flash_attention", "one TF32 product (1xTF32, bit-masked)",
+            lambda a, kw: attention_1xtf32(*a, **kw)),
     }
-    for name, control in controls.items():
-        label = JAMBA_TIMED[name]
+    for label, (name, what, control) in controls.items():
         _, args, kw = cases[label]
         want = getattr(mods[name], f"{name}_plain")(*args, **kw)
         ratio = row_scaled_ratio(control(args, kw), want, ROW_TOL[want.dtype])
-        print(f"  control {name} with p.v accumulated in bf16, Jamba {label}: "
+        print(f"  control {name} with {what}, Jamba {label}: "
               f"worst err/limit {ratio:.3f} -> {'REJECTED' if ratio > 1 else 'passed'}")
         if ratio <= 1.0:
-            fail(f"the bf16-accumulating control of {name} passes the limit: the "
+            fail(f"the control of {name} with {what} passes the limit: the "
                  "limit cannot tell a sound kernel from an unsound one")
         jamba[label]["control_err_over_limit"] = ratio
     # a datum, not a gate: SDPA's own error on K5's Jamba case
@@ -540,18 +621,24 @@ def run_fused(dev: torch.device) -> dict[str, int]:
     return launches
 
 
-def fused_work(name: str, args: tuple, kw: dict) -> tuple[int, int, float]:
-    """(bytes, operations, peak operations/s) of one call: each input read
-    once and the output written once; operations counted for what these
-    inputs need (causal and kv_len masks cut the visible pairs), at the
-    peak of the inputs' type."""
+def fused_work(name: str, args: tuple, kw: dict) -> tuple[int, int, float, str]:
+    """(bytes, operations, the operations' least time in s, how it was
+    taken) of one call: each input read once and each output written once;
+    operations counted for what these inputs need (causal and kv_len masks
+    cut the visible pairs), at the peak of the inputs' type. K5 in float32
+    takes the least of float32 FMAs, three TF32 products and three bf16
+    products on the tensor cores (x split as hi = bf16(x), lo = bf16(x -
+    hi) keeps about 2^-16 of each product, inside the float32 limit: see
+    tests/test_torch_tf32.py). K7 takes its float32 operations; its
+    exponentials on the SFU (MUFU) alone are printed as a datum, not a
+    floor, since an ex2 can also run as a polynomial on the FMA pipes."""
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
 
     x = args[0]
     rate = BF16_OPS_PER_S if x.dtype == torch.bfloat16 else FP32_OPS_PER_S
     if name == "rmsnorm":   # x, w in; out; square-add, scale, weight: 4 per element
-        return nbytes(*args, x), 4 * x.numel(), rate
+        return nbytes(*args, x), 4 * x.numel(), 4 * x.numel() / rate, "the dtype's peak"
     if name == "flash_attention":  # q, k, v in; o out; 4 D per visible pair and head
         b, sq, h, d = x.shape
         sk = args[1].shape[1]
@@ -559,19 +646,33 @@ def fused_work(name: str, args: tuple, kw: dict) -> tuple[int, int, float]:
             pairs = sum(max(0, min(sk, i + sk - sq + 1)) for i in range(sq))
         else:
             pairs = sq * sk
-        return nbytes(*args, x), 4 * d * b * h * pairs, rate
+        nops = 4 * d * b * h * pairs
+        if x.dtype == torch.bfloat16:
+            return nbytes(*args, x), nops, nops / rate, "the dtype's peak"
+        ways = {"FMAs": nops / FP32_OPS_PER_S, "3xTF32": 3 * nops / TF32_OPS_PER_S,
+                "3xBF16": 3 * nops / BF16_OPS_PER_S}
+        least = min(ways, key=ways.get)
+        how = ("least of float32 " + ", ".join(f"{k} {v * 1e3:.6f} ms" for k, v in ways.items())
+               + f" (3xTF32 and 3xBF16 on the tensor cores): {least}")
+        return nbytes(*args, x), nops, ways[least], how
     if name == "flash_decode":  # the keys below kv_len only
         q, k, _, kv_len = args
         b, h, d = q.shape
         s, kh = k.shape[1], k.shape[2]
         keys = int(kv_len.clamp(0, s).sum())
         kv = 2 * keys * kh * d * k.element_size()
-        return nbytes(q, kv_len, q) + kv, 4 * d * h * keys, rate
-    # mamba_scan: x, dt, A, B, C, D in; y out; per (t, channel) softplus and
-    # dt*x (~6), per state dim exp, two multiplies and two fmas (~7)
+        return nbytes(q, kv_len, q) + kv, 4 * d * h * keys, 4 * d * h * keys / rate, "the dtype's peak"
+    # mamba_scan: x, dt, A, B, C, D in; y (and h) out; per (t, channel)
+    # softplus and dt*x (~6), per state dim a multiply, exp, two fmas (~7),
+    # one ex2 of them, which the kernel takes on the SFU
     bsz, s, dm = x.shape
     n = args[2].shape[1]
-    return nbytes(*args, x), (7 * n + 6) * bsz * s * dm, FP32_OPS_PER_S
+    outs = (x, args[2].new_empty(bsz, dm, n)) if kw.get("return_state") else (x,)
+    nops, mufu = (7 * n + 6) * bsz * s * dm, n * bsz * s * dm
+    fp32, sfu = nops / FP32_OPS_PER_S, mufu / MUFU_OPS_PER_S
+    how = (f"float32 ops {fp32 * 1e3:.6f} ms; datum, not a floor: {mufu} ex2 on the SFU "
+           f"alone {sfu * 1e3:.6f} ms")
+    return nbytes(*args, *outs), nops, fp32, how
 
 
 def library_call(name: str, args: tuple, kw: dict):
@@ -626,15 +727,16 @@ def time_fused(dev: torch.device, err: dict, jamba: dict, cases: dict,
         plain_ms = wall_ms(lambda: plain(*args, **kw), reps=3)
         lib = library_call(name, args, kw)
         library_ms = None if lib is None else timer.time_callable(lib).median_ns / 1e6
-        nbytes, nops, rate = fused_work(name, args, kw)
-        bound_ms, bound_by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-                                 (nops / rate * 1e3, "operations"))
+        nbytes, nops, ops_s, how = fused_work(name, args, kw)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_s * 1e3, "operations"))
         lib_txt = "null" if library_ms is None else f"{library_ms:.6f} ms"
         print(f"{name} [{label}]: {ms:.6f} ms/launch on the card, plain {plain_ms:.6f} ms "
-              f"wall, bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, {nops} ops), "
-              f"library {lib_txt}, {ms / bound_ms:.1f} x the bound")
+              f"wall, bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B = {bytes_ms:.6f} ms, "
+              f"{nops} ops = {ops_s * 1e3:.6f} ms, {how}), library {lib_txt}, "
+              f"{ms / bound_ms:.1f} x the bound")
         return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": library_ms}
+                "bound_by": bound_by, "bound_how": how, "library_ms": library_ms}
 
     out = []
     n = FUSED_LENS[1]
@@ -650,6 +752,8 @@ def time_fused(dev: torch.device, err: dict, jamba: dict, cases: dict,
         if name == "flash_decode":
             extra["g_sweep_ms"] = decode_group_sweep(timer, cases)
             extra["pass_us"] = decode_passes(cases)
+        if name == "mamba_scan":
+            extra["copy_ms"] = scan_copy_widths(timer, jargs, jkw)
         if name in JAMBA_TIMED_MORE:
             key, mlabel = JAMBA_TIMED_MORE[name]
             _, margs, mkw = cases[mlabel]
@@ -661,6 +765,52 @@ def time_fused(dev: torch.device, err: dict, jamba: dict, cases: dict,
                     "replaces": replaces[name], "design": designs(name),
                     "launches": launches[name],
                     "max_abs_err": err[name], **unit, "jamba": big, **extra})
+    return out
+
+
+def scan_copy_widths(timer, args: tuple, kw: dict,
+                     rounds: int = 3) -> dict[str, list[float]]:
+    """K7 at the Jamba case in its two copy widths, alternated, a median of
+    20 each round: 16-byte copies (the wrapper, aligned inputs), 4-byte
+    copies of the same inputs (the kernel's C entry asked for them), and
+    the wrapper on copies of the inputs placed 4 bytes off a 16-byte
+    boundary (4-byte copies, the rows off their sectors too). All three
+    must give the same y, bit for bit. A datum on what the 16-byte path buys."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.common import stream_handle
+    from repro_torch.kernels.mamba_scan import _lib, mamba_scan, scan_vectorized
+
+    def off(t):
+        v = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+        return v.copy_(t)
+
+    moved = tuple(off(t) for t in args)
+    if not (scan_vectorized(*args[:2], *args[3:5])
+            and not scan_vectorized(*moved[:2], *moved[3:5])):
+        fail("mamba_scan copy widths: the inputs do not take both widths")
+    x, dt, a, b, c, d = args
+    (bz, s, dm), n = x.shape, a.shape[1]
+    y4 = torch.empty_like(x)
+    lib, stream = _lib(), stream_handle(x.device)
+
+    def four_byte():
+        err = lib.mamba_scan_launch(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+                                    c.data_ptr(), d.data_ptr(), y4.data_ptr(), None, bz, s,
+                                    dm, n, 0, stream)
+        _build.check_launch(lib, "mamba_scan", err)
+
+    runs = {"16-byte": lambda: mamba_scan(*args, **kw), "4-byte": four_byte,
+            "4-byte, 4 bytes off": lambda: mamba_scan(*moved, **kw)}
+    y16 = runs["16-byte"]()
+    four_byte()
+    if not (torch.equal(y16, y4) and torch.equal(y16, runs["4-byte, 4 bytes off"]())):
+        fail("mamba_scan: y differs between the copy widths")
+    out = {k: [] for k in runs}
+    for _ in range(rounds):
+        for key, fn in runs.items():
+            out[key].append(timer.time_callable(fn).median_ns / 1e6)
+    print("mamba_scan [Jamba] copies, ms a launch by round: "
+          + "; ".join(f"{k} " + " ".join(f"{t:.6f}" for t in v) for k, v in out.items()))
     return out
 
 
@@ -880,13 +1030,43 @@ def sass_checks(build: Path) -> None:
         print(f"sass: K5 {name.split('wgmma_kernel')[-1][:12]}: "
               + ", ".join(f"{n} {o}" for o, n in counts.items()) + f", {len(body)} instructions")
 
+    def mnemonics(body: list[str]) -> list[str]:
+        """Each instruction's full mnemonic (HMMA.1688.F32.TF32, MUFU.EX2, ...)."""
+        found = (re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", ln)
+                 for ln in body)
+        return [m.group(1) for m in found if m]
+
+    tf32 = {n: body for n, body in functions("flash_attention").items()
+            if "flash_attention_tf32_kernel" in n}
+    if len(tf32) != 4:
+        fail(f"expected 4 float32 3xTF32 instances of K5 in the SASS, found {len(tf32)}")
+    for name, body in sorted(tf32.items()):
+        ops = mnemonics(body)
+        counts = {"HMMA.TF32": sum(o.startswith("HMMA") and "TF32" in o.split(".") for o in ops),
+                  "LDGSTS": sum(o.startswith("LDGSTS") for o in ops)}
+        if not (counts["HMMA.TF32"] and counts["LDGSTS"]):
+            fail(f"K5 float32 instance {name}: {counts} in its SASS")
+        inst = re.search(r"tf32_kernelILi(\d+)E", name).group(1)
+        print(f"sass: K5 f32 D {inst}: " + ", ".join(f"{n} {o}" for o, n in counts.items())
+              + f", {len(body)} instructions")
+    scan = {n: b for n, b in functions("mamba_scan").items() if "mamba_scan_kernel" in n}
+    if len(scan) != 6:
+        fail(f"expected 6 instances of K7 (N 4, 8, 16 x 16- or 4-byte copies) in the SASS, "
+             f"found {len(scan)}")
+    for name, body in sorted(scan.items()):
+        ops = mnemonics(body)
+        counts = {"LDGSTS": sum(o.startswith("LDGSTS") for o in ops),
+                  "MUFU.EX2": ops.count("MUFU.EX2")}
+        if not (counts["LDGSTS"] and counts["MUFU.EX2"]):
+            fail(f"K7 instance {name}: {counts} in its SASS")
+        inst = re.search(r"mamba_scan_kernelI(.*?)EEv", name).group(1)
+        print(f"sass: K7 {inst}: " + ", ".join(f"{n} {o}" for o, n in counts.items())
+              + f", {len(body)} instructions")
+
     def wide(body: list[str], prefix: str) -> int:
         """Instructions of ``body`` whose mnemonic starts with ``prefix`` and
         has a .128 modifier (LDGSTS.E.BYPASS.LTC128B.128, LDG.E.128, ...)."""
-        found = (re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", ln)
-                 for ln in body)
-        return sum(m is not None and m.group(1).startswith(prefix)
-                   and "128" in m.group(1).split(".")[1:] for m in found)
+        return sum(m.startswith(prefix) and "128" in m.split(".")[1:] for m in mnemonics(body))
 
     split = {n: b for n, b in functions("flash_decode").items() if "decode_split_kernelI" in n}
     if len(split) != 32:
@@ -927,6 +1107,25 @@ def sass_checks(build: Path) -> None:
           f"{len(ffma)} FFMAs between {ffma[0]} and {ffma[-1]}, no branch; each read and "
           "the instruction before it: "
           + "; ".join(f"{i}: {text[i - 1]} | {text[i]}" for i in clock))
+
+
+def spill_checks(build: Path) -> None:
+    """ptxas must report 0 spill bytes for every instance of K5's float32
+    design and of K7 (build.log keeps ptxas -v's lines)."""
+    import re
+
+    log = (build / "build.log").read_text()
+    found = re.findall(r"Function properties for (\S+)\n\s*\d+ bytes stack frame, "
+                       r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
+    checked = {f: (int(st), int(ld)) for f, st, ld in found
+               if "flash_attention_tf32_kernel" in f or "mamba_scan_kernel" in f}
+    if len(checked) != 10:
+        fail(f"ptxas: expected spill lines for 4 K5 float32 and 6 K7 instances, found "
+             f"{len(checked)}")
+    spilled = {f: v for f, v in checked.items() if any(v)}
+    if spilled:
+        fail(f"ptxas: spills (stores, loads) in {spilled}")
+    print(f"ptxas: 0 spill bytes in each of the {len(checked)} K5 float32 and K7 instances")
 
 
 def loop_study(dev: torch.device, lens: tuple[int, int] = (64, 512),
@@ -978,6 +1177,7 @@ def main() -> int:
         elif line.startswith("== "):  # a source and its nvcc's return code
             print(f"  nvcc: {line[3:]}")
     sass_checks(build)
+    spill_checks(build)
     phase("build", t0)
 
     t0 = time.perf_counter()

@@ -18,6 +18,16 @@ namespace repro {
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
 
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the SFU (MUFU.EX2, relative error about 2^-22; exact 0 for
+// x <= -126, so a masked logit's weight is exactly 0).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // Sum / max over aligned groups of W lanes (W a power of two <= 32). Every
 // lane of the warp must take part: the shuffles name the full mask.
 template <int W = 32>
@@ -46,12 +56,16 @@ __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
 
 // E consecutive elements widened to float32. When E elements are 16 bytes
 // (4 float32, 8 bfloat16) it is one 128-bit access, and p must be 16-byte
-// aligned; any other E is E scalar accesses.
+// aligned; 2 float32 are one 64-bit access (p 8-byte aligned); any other E
+// is E scalar accesses.
 template <int E>
 __device__ __forceinline__ void load_vec(const float* p, float (&v)[E]) {
   if constexpr (E == 4) {
     const float4 t = *reinterpret_cast<const float4*>(p);
     v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else if constexpr (E == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x; v[1] = t.y;
   } else {
 #pragma unroll
     for (int e = 0; e < E; ++e) v[e] = p[e];
@@ -78,6 +92,8 @@ template <int E>
 __device__ __forceinline__ void store_vec(float* p, const float (&v)[E]) {
   if constexpr (E == 4) {
     *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (E == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
   } else {
 #pragma unroll
     for (int e = 0; e < E; ++e) p[e] = v[e];
@@ -105,6 +121,12 @@ __device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float (&v)[E])
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(gmem), "r"(src_bytes) : "memory");
+}
+// The same for 4 bytes (any 4-byte aligned address), through L1.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(s), "l"(gmem), "r"(src_bytes) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {

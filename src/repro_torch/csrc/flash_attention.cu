@@ -13,8 +13,13 @@
 // block sizes, and ref_attention gives NaN; see ROADMAP Queue 3.)
 //
 // Bound on this card: at a model's widths, operations (4 D per visible
-// query-key pair against ~4 D bytes per key read). The design follows the
-// dtype, and nothing else:
+// query-key pair against ~4 D bytes per key read): bf16 on the tensor cores
+// at 989 TFLOP/s; float32 the least of float32 FMAs (67 TFLOP/s), three
+// TF32 products (3 x 4 D a pair at 495 TFLOP/s) and three bf16 products (at
+// 989 TFLOP/s: two bf16 terms an operand keep about 2^-16 of each product,
+// inside the float32 limit), about 0.104 ms at Jamba's causal q [1, 2048,
+// 32, 128], kv [1, 2048, 8, 128], against 0.21 ms in 3xTF32, this kernel's
+// form, and 0.51 ms in FMAs. The design follows the dtype, and nothing else:
 //
 // bfloat16 -> flash_attention_wgmma_kernel, on the tensor cores. A block
 // owns 128 query rows of one head: two consumer warpgroups of 64 rows
@@ -44,18 +49,37 @@
 // for the masked logits instead, a row whose keys are all masked so far
 // would have m = -1e30 and 2^(s - m) = 1 for each masked key.)
 //
-// float32 -> flash_attention_kernel, float32 FMAs from shared memory: a
-// product in TF32 would fail the float32 limit of 2^-13, which sits below
-// TF32's 2^-11 on purpose. Masked logits take the finite NEG_INF and p is
-// forced to 0 by predicate. One block of 128 threads per (query tile of 16
-// rows, head, batch); q staged once, scaled, in float32 shared memory; the
-// loop walks KV tiles of 32 keys, staged in float32 (rows padded to D + 1
-// so that the lanes of a warp hit distinct banks). Eight lanes own a query
-// row: each computes 4 of the row's 32 logits, the eight reduce the max and
-// the sum with shuffles, and each then accumulates D/8 output columns of
-// p . v in float32 registers. With `causal`, KV tiles wholly above the
-// tile's last row are never loaded. Bound by shared-memory loads (about one
-// per FMA), far from the card's float32 peak.
+// float32 -> flash_attention_tf32_kernel, 3xTF32 on the tensor cores
+// (mma.sync m16n8k8). One TF32 product (2^-11) would fail the float32 limit
+// of 2^-13, so each operand x is split as hi = tf32(x), lo = tf32(x - hi),
+// both rounded to nearest, ties away (cvt.rna's rounding, in integer ops:
+// mma reads only a register's top 19 bits, so raw bits would truncate),
+// and each product is taken as lo.hi + hi.lo + hi.hi into float32
+// accumulators, for S = (q scale) . K^T and for O += P . V alike. A block
+// of 8 warps serves up to 128 query rows of the g query heads that share
+// one KV head (a warp: 16 rows of one head), so each K and V tile it loads
+// serves all of them: 32-key tiles of K and V arrive by 16-byte cp.async
+// in a 2-stage ring, in float32, rows padded to D + 4 floats (every
+// fragment read hits 32 distinct banks). Each warp splits its scaled q
+// once into shared memory (hi and lo: split Q in registers would take 128
+// of them at D 128, and the O accumulator 64 more); K and V are split as
+// their fragments are read. The softmax runs on S's accumulator fragments
+// in float32 (base 2, MUFU.EX2). P enters P . V without a shuffle: the
+// accumulator holds keys 2 t and 2 t + 1 of each 8 where the A fragment
+// wants columns t and t + 4, so the kernel lets column t stand for key 2 t
+// and column t + 4 for key 2 t + 1, and reads V's rows in that order (the
+// sum over keys does not care). Masked logits take the finite NEG_INF and
+// p is forced to exactly 0 by predicate (so hi = lo = 0); a row that sees
+// no key has l = 0 and is stored as 0. With `causal`, KV tiles wholly above
+// a block's last row are never loaded, a warp skips the tiles above its own
+// rows, the mask is computed only on tiles that cross the diagonal or Sk,
+// and the heaviest blocks launch first. What holds it above its bound:
+// every warp reads its split q and whole K and V tiles as fragments from
+// shared memory and splits K and V itself, mma.sync does not reach
+// wgmma's TF32 rate, and TF32 runs at half bf16's (PERF.md, section 6).
+// wgmma would read both products' operands straight from shared memory,
+// but in TF32 only K-major, and V is stored [key, D]: it needs V transposed
+// per tile. In bf16, wgmma also takes V as it is stored.
 //
 // Both read the [B,S,H,D] layout through their own strides: nothing is
 // transposed.
@@ -68,133 +92,292 @@
 
 namespace {
 
-// ------------------------------------------------------------ float32, FMA
-constexpr int kThreads = 128;
-constexpr int kBlockQ = 16;         // query rows per block
-constexpr int kBlockK = 32;         // keys per KV tile
-constexpr int kLanesPerRow = kThreads / kBlockQ;      // 8
-constexpr int kKeysPerLane = kBlockK / kLanesPerRow;  // 4
-constexpr float kNegInf = -1e30f;
+constexpr float kNegInf = -1e30f;  // the finite mask value and the running max's start
+using repro::fast_exp2;
+using repro::kLog2e;
 
+// ------------------------------------------------- float32, 3xTF32 mma.sync
+namespace tf {
+
+constexpr int kWarps = 8;              // warps a block, 16 query rows each
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16;              // query rows of a warp: mma's M
+constexpr int kBlockN = 32;            // keys a KV tile
+constexpr int kStages = 2;             // KV tiles in the cp.async ring
+
+// Shared memory of a block, in floats: the split Q of each warp (hi, then
+// lo: [kWarps][kRows][kPad] each), then kStages K tiles and kStages V tiles
+// ([kBlockN][kPad] each). Rows are padded to D + 4 floats, so the lanes of a
+// fragment read (row g, column t, or row 2t, column g) hit 32 distinct
+// banks, and stay 16-byte aligned for cp.async.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ o, int sq,
-                       int sk, int h, int kh, float scale, int causal) {
-  constexpr int kPad = D + 1;
-  constexpr int kCols = D / kLanesPerRow;  // output columns per thread
-  __shared__ float qs[kBlockQ][kPad];
-  __shared__ float ks[kBlockK][kPad];
-  __shared__ float vs[kBlockK][kPad];
-  __shared__ float ps[kBlockQ][kBlockK + 1];
+struct Smem {
+  static constexpr int kPad = D + 4;
+  static constexpr int kQ = kWarps * kRows * kPad;
+  static constexpr int kTile = kBlockN * kPad;
+  static constexpr int kK = 2 * kQ;
+  static constexpr int kV = kK + kStages * kTile;
+  static constexpr int kBytes = (kV + kStages * kTile) * 4;
+};
 
-  const int tid = threadIdx.x;
-  const int row = tid / kLanesPerRow, lane = tid % kLanesPerRow;
-  const int q0 = blockIdx.x * kBlockQ, hi = blockIdx.y, b = blockIdx.z;
-  const int khi = hi / (h / kh);
+// x = hi + lo in two TF32 terms, each rounded to nearest with ties away
+// from zero, cvt.rna.tf32.f32's rounding for finite x, in integer ops on
+// the bit pattern (cvt.rna adds an inf/NaN check and a select to each):
+// adding half of TF32's ulp to the magnitude and clearing the 13 low bits
+// rounds; hi is cleared, since x - hi must be exact in float32; lo is only
+// added to, since mma reads the top 19 bits of a register and never the
+// rest. Raw float32 bits would be truncated instead of rounded.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
+}
+// d (16x8, float32) += a (16x8, TF32, row) . b (8x8, TF32, col). Fragments,
+// with g = lane / 4 and t = lane % 4: a = {(g, t), (g + 8, t), (g, t + 4),
+// (g + 8, t + 4)}; b = {(t, g), (t + 4, g)}; d = {(g, 2t), (g, 2t + 1),
+// (g + 8, 2t), (g + 8, 2t + 1)} as (row, column).
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// d += a . b in 3xTF32: lo.hi + hi.lo + hi.hi (lo.lo, about 2^-22 of the
+// product, is left out).
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], float b0, float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split(b0, bh0, bl0);
+  split(b1, bh1, bl1);
+  mma(d, al, bh0, bh1);
+  mma(d, ah, bl0, bl1);
+  mma(d, ah, bh0, bh1);
+}
+
+// One block per (run of kWarps work items, KV head, batch); an item is 16
+// query rows of one of the g query heads that read this KV head (item i:
+// row tile i / g, head i % g), so every K and V tile a block loads serves
+// up to kWarps x 16 query rows. Heavy blocks (late rows under `causal`)
+// launch first.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, float* __restrict__ o, int sq,
+                            int sk, int h, int kh, float scale, int causal) {
+  using L = Smem<D>;
+  constexpr int kPad = L::kPad;
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int khi = blockIdx.y, b = blockIdx.z, grp = h / kh;
+  const int n_items = (sq + kRows - 1) / kRows * grp;
+  const int first = (gridDim.x - 1 - blockIdx.x) * kWarps;  // this block's first item
+  const int item = first + warp;
+  const bool live = item < n_items;
+  const int p0 = (live ? item / grp : 0) * kRows;            // this warp's first row
+  const int hi = khi * grp + (live ? item % grp : 0);
+  const int offset = sk - sq;  // query row i sits at key position i + offset
+  const int last_p0 = (min(first + kWarps, n_items) - 1) / grp * kRows;
+  const int kend = causal ? min(sk, max(last_p0 + kRows + offset, 0)) : sk;
+  const int w_kend = causal ? min(sk, max(p0 + kRows + offset, 0)) : sk;
+  const int n_tiles = (kend + kBlockN - 1) / kBlockN;
+
   const long long q_stride = static_cast<long long>(h) * D;   // between rows
   const long long kv_stride = static_cast<long long>(kh) * D;
   const float* qb = q + static_cast<long long>(b) * sq * q_stride + static_cast<long long>(hi) * D;
   const float* kb = k + static_cast<long long>(b) * sk * kv_stride + static_cast<long long>(khi) * D;
   const float* vb = v + static_cast<long long>(b) * sk * kv_stride + static_cast<long long>(khi) * D;
   float* ob = o + static_cast<long long>(b) * sq * q_stride + static_cast<long long>(hi) * D;
+  float* qh = smem + warp * kRows * kPad;
+  float* ql = qh + L::kQ;
 
-  for (int i = tid; i < kBlockQ * D; i += kThreads) {
-    const int r = i / D, d = i % D, s = q0 + r;
-    qs[r][d] = s < sq ? qb[s * q_stride + d] * scale : 0.f;
-  }
-  const int offset = sk - sq;          // query row i sits at key position i + offset
-  const int qpos = q0 + row + offset;
-  int kend = sk;                       // keys at or past kend are masked for every row
-  if (causal) kend = min(sk, max(q0 + kBlockQ + offset, 0));
+  // K and V rows k0.. of tile t into stage t % kStages, 16 bytes a copy;
+  // keys >= sk read nothing and land as zeros.
+  auto load_tile = [&](int t) {
+    float* ks = smem + L::kK + (t % kStages) * L::kTile;
+    float* vs = smem + L::kV + (t % kStages) * L::kTile;
+    constexpr int kChunks = D / 4;  // 16-byte copies a row
+    for (int i = tid; i < 2 * kBlockN * kChunks; i += kThreads) {
+      const int r = (i / kChunks) % kBlockN, c = i % kChunks, key = t * kBlockN + r;
+      const long long src = static_cast<long long>(min(key, sk - 1)) * kv_stride + 4 * c;
+      const bool is_v = i >= kBlockN * kChunks;
+      repro::cp_async16((is_v ? vs : ks) + r * kPad + 4 * c, (is_v ? vb : kb) + src,
+                        key < sk ? 16 : 0);
+    }
+  };
+  if (n_tiles > 0) load_tile(0);
+  repro::cp_async_commit();
 
-  float m = kNegInf, l = 0.f, acc[kCols];
-#pragma unroll
-  for (int j = 0; j < kCols; ++j) acc[j] = 0.f;
-
-  for (int k0 = 0; k0 < kend; k0 += kBlockK) {
-    __syncthreads();  // the previous tile's ks, vs and ps are consumed
-    for (int i = tid; i < kBlockK * D; i += kThreads) {
-      const int c = i / D, d = i % D, s = k0 + c;
-      const bool in = s < sk;
-      ks[c][d] = in ? kb[s * kv_stride + d] : 0.f;
-      vs[c][d] = in ? vb[s * kv_stride + d] : 0.f;
-    }
-    __syncthreads();
-
-    float sc[kKeysPerLane];
-#pragma unroll
-    for (int j = 0; j < kKeysPerLane; ++j) sc[j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float qv = qs[row][d];
-#pragma unroll
-      for (int j = 0; j < kKeysPerLane; ++j)
-        sc[j] = fmaf(qv, ks[lane + kLanesPerRow * j][d], sc[j]);
-    }
-    bool valid[kKeysPerLane];
-    float mt = kNegInf;
-#pragma unroll
-    for (int j = 0; j < kKeysPerLane; ++j) {
-      const int kp = k0 + lane + kLanesPerRow * j;
-      valid[j] = kp < sk && (!causal || qpos >= kp);
-      if (valid[j]) mt = fmaxf(mt, sc[j]);
-    }
-    mt = repro::warp_max<kLanesPerRow>(mt);
-    const float m_new = fmaxf(m, mt);
-    const float alpha = expf(m - m_new);
-    float ls = 0.f;
-#pragma unroll
-    for (int j = 0; j < kKeysPerLane; ++j) {
-      const float p = valid[j] ? expf(sc[j] - m_new) : 0.f;
-      ps[row][lane + kLanesPerRow * j] = p;
-      ls += p;
-    }
-    ls = repro::warp_sum<kLanesPerRow>(ls);
-    l = l * alpha + ls;
-    m = m_new;
-    __syncwarp();  // the row's eight lanes (one warp) wrote ps[row]
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[j] *= alpha;
-#pragma unroll 4
-    for (int c = 0; c < kBlockK; ++c) {
-      const float p = ps[row][c];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j)
-        acc[j] = fmaf(p, vs[c][lane + kLanesPerRow * j], acc[j]);
-    }
+  // this warp's rows of q, scaled, split in two TF32 terms once
+  for (int i = lane; i < kRows * D; i += 32) {
+    const int r = i / D, d = i % D, s = p0 + r;
+    uint32_t xh, xl;
+    split(live && s < sq ? qb[s * q_stride + d] * scale : 0.f, xh, xl);
+    qh[r * kPad + d] = __uint_as_float(xh);
+    ql[r * kPad + d] = __uint_as_float(xl);
   }
 
-  const int s = q0 + row;
-  if (s < sq) {
-    const float inv = 1.f / fmaxf(l, 1e-30f);
+  const int row0 = p0 + g, row1 = row0 + 8;  // this thread's two rows
+  float o_acc[D / 8][4];
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) ob[s * q_stride + lane + kLanesPerRow * j] = acc[j] * inv;
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o_acc[n][c] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) load_tile(t + 1);
+    repro::cp_async_commit();
+    repro::cp_async_wait<1>();  // tile t has landed (this thread's copies)
+    __syncthreads();            // everyone's copies, and the split q
+    const int k0 = t * kBlockN;
+    if (live && k0 < w_kend) {  // some key of the tile is visible to this warp
+      const float* ks = smem + L::kK + (t % kStages) * L::kTile;
+      const float* vs = smem + L::kV + (t % kStages) * L::kTile;
+      // S = (q scale) . K^T: s[j] is the 16 x 8 block of keys k0 + 8j..
+      float s[kBlockN / 8][4];
+#pragma unroll
+      for (int j = 0; j < kBlockN / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const int a0 = g * kPad + 8 * kk + t4, a1 = a0 + 8 * kPad;
+        const uint32_t ah[4] = {__float_as_uint(qh[a0]), __float_as_uint(qh[a1]),
+                                __float_as_uint(qh[a0 + 4]), __float_as_uint(qh[a1 + 4])};
+        const uint32_t al[4] = {__float_as_uint(ql[a0]), __float_as_uint(ql[a1]),
+                                __float_as_uint(ql[a0 + 4]), __float_as_uint(ql[a1 + 4])};
+#pragma unroll
+        for (int j = 0; j < kBlockN / 8; ++j) {
+          const float* kp = ks + (8 * j + g) * kPad + 8 * kk + t4;
+          mma3(s[j], ah, al, kp[0], kp[4]);
+        }
+      }
+      // s[j][c]: row (c < 2 ? row0 : row1), key k0 + 8j + 2 t4 + (c & 1).
+      // Masked keys take the finite kNegInf and weigh exactly 0 by
+      // predicate; only a tile that crosses the diagonal or Sk is masked.
+      uint32_t visible = 0xffffu;  // bit 4j + c
+      if (k0 + kBlockN > sk || (causal && k0 + kBlockN - 1 > p0 + offset)) {
+        visible = 0;
+#pragma unroll
+        for (int j = 0; j < kBlockN / 8; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int key = k0 + 8 * j + 2 * t4 + (c & 1), row = c < 2 ? row0 : row1;
+            if (key < sk && (!causal || key <= row + offset)) visible |= 1u << (4 * j + c);
+          }
+      }
+      float mt0 = kNegInf, mt1 = kNegInf;
+#pragma unroll
+      for (int j = 0; j < kBlockN / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          if (!(visible >> (4 * j + c) & 1u)) s[j][c] = kNegInf;
+          if (c < 2) mt0 = fmaxf(mt0, s[j][c]);
+          else mt1 = fmaxf(mt1, s[j][c]);
+        }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {  // the row's four lanes
+        mt0 = fmaxf(mt0, __shfl_xor_sync(0xffffffffu, mt0, off));
+        mt1 = fmaxf(mt1, __shfl_xor_sync(0xffffffffu, mt1, off));
+      }
+      const float mn0 = fmaxf(m0, mt0), mn1 = fmaxf(m1, mt1);
+      const float alpha0 = fast_exp2((m0 - mn0) * kLog2e);
+      const float alpha1 = fast_exp2((m1 - mn1) * kLog2e);
+      m0 = mn0;
+      m1 = mn1;
+      float ls0 = 0.f, ls1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < kBlockN / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float p = (visible >> (4 * j + c) & 1u)
+                              ? fast_exp2((s[j][c] - (c < 2 ? mn0 : mn1)) * kLog2e)
+                              : 0.f;
+          s[j][c] = p;
+          if (c < 2) ls0 += p;
+          else ls1 += p;
+        }
+      l0 = l0 * alpha0 + ls0;  // this lane's part of the row sums
+      l1 = l1 * alpha1 + ls1;
+      if (__any_sync(0xffffffffu, alpha0 != 1.f || alpha1 != 1.f)) {  // a max moved
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          o_acc[n][0] *= alpha0;
+          o_acc[n][1] *= alpha0;
+          o_acc[n][2] *= alpha1;
+          o_acc[n][3] *= alpha1;
+        }
+      }
+      // O += P . V over the tile's keys, 8 at a time. The A fragment wants
+      // columns t4 and t4 + 4 of each row, but s[j] holds keys 2 t4 and
+      // 2 t4 + 1: so column t4 stands for key 8j + 2 t4 and column t4 + 4
+      // for key 8j + 2 t4 + 1, and V's rows are read in the same order
+      // (B's rows t4, t4 + 4 -> keys 2 t4, 2 t4 + 1). The sum over keys is
+      // the same, and P needs no shuffle.
+#pragma unroll
+      for (int j = 0; j < kBlockN / 8; ++j) {
+        uint32_t ph[4], pl[4];
+        split(s[j][0], ph[0], pl[0]);
+        split(s[j][2], ph[1], pl[1]);
+        split(s[j][1], ph[2], pl[2]);
+        split(s[j][3], ph[3], pl[3]);
+        const float* vp = vs + (8 * j + 2 * t4) * kPad + g;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) mma3(o_acc[n], ph, pl, vp[8 * n], vp[kPad + 8 * n]);
+      }
+    }
+    __syncthreads();  // the stage is consumed before the next copy into it
+  }
+
+  if (!live) return;
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int col = 8 * n + 2 * t4;
+    if (row0 < sq)
+      *reinterpret_cast<float2*>(ob + row0 * q_stride + col) =
+          make_float2(o_acc[n][0] * inv0, o_acc[n][1] * inv0);
+    if (row1 < sq)
+      *reinterpret_cast<float2*>(ob + row1 * q_stride + col) =
+          make_float2(o_acc[n][2] * inv1, o_acc[n][3] * inv1);
   }
 }
 
-int launch_fma(const void* q, const void* k, const void* v, void* o, int b, int sq,
-               int sk, int h, int kh, int d, float scale, int causal, cudaStream_t stream) {
-  const dim3 grid((sq + kBlockQ - 1) / kBlockQ, h, b);
+template <int D>
+int launch(const float* q, const float* k, const float* v, float* o, int b, int sq, int sk,
+           int h, int kh, float scale, int causal, cudaStream_t stream) {
+  using L = Smem<D>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_tf32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int items = (sq + kRows - 1) / kRows * (h / kh);
+  const dim3 grid((items + kWarps - 1) / kWarps, kh, b);
+  flash_attention_tf32_kernel<D><<<grid, kThreads, L::kBytes, stream>>>(
+      q, k, v, o, sq, sk, h, kh, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tf
+
+int launch_tf32(const void* q, const void* k, const void* v, void* o, int b, int sq,
+                int sk, int h, int kh, int d, float scale, int causal, cudaStream_t stream) {
   const float* qt = static_cast<const float*>(q);
   const float* kt = static_cast<const float*>(k);
   const float* vt = static_cast<const float*>(v);
   float* ot = static_cast<float*>(o);
-#define REPRO_FLASH_CASE(DIM)                                              \
-  case DIM:                                                                \
-    flash_attention_kernel<DIM><<<grid, kThreads, 0, stream>>>(            \
-        qt, kt, vt, ot, sq, sk, h, kh, scale, causal);                     \
-    break;
   switch (d) {
-    REPRO_FLASH_CASE(16)
-    REPRO_FLASH_CASE(32)
-    REPRO_FLASH_CASE(64)
-    REPRO_FLASH_CASE(128)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case 16: return tf::launch<16>(qt, kt, vt, ot, b, sq, sk, h, kh, scale, causal, stream);
+    case 32: return tf::launch<32>(qt, kt, vt, ot, b, sq, sk, h, kh, scale, causal, stream);
+    case 64: return tf::launch<64>(qt, kt, vt, ot, b, sq, sk, h, kh, scale, causal, stream);
+    case 128: return tf::launch<128>(qt, kt, vt, ot, b, sq, sk, h, kh, scale, causal, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef REPRO_FLASH_CASE
-  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------- bfloat16, wgmma
@@ -207,14 +390,6 @@ constexpr int kThreads = 128 * kConsumers + 32;  // and one producer warp
 constexpr int kBlockN = 64;                      // keys per KV tile
 constexpr int kStages = 2;                       // KV tiles in the ring
 constexpr int kPTerms = 2;                       // bf16 terms of p in P . V
-constexpr float kLog2e = 1.4426950408889634f;
-
-// 2^x on the SFU (MUFU.EX2, relative error about 2^-22; 0 for x <= -126).
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -642,15 +817,15 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int b, in
 }  // namespace
 
 // q, o: [b, sq, h, d]; k, v: [b, sk, kh, d]; contiguous, one dtype:
-// repro::kBFloat16 runs the wgmma kernel (bases 16-byte aligned, as TMA
-// needs), repro::kFloat32 the FMA kernel; d in {16, 32, 64, 128};
-// h % kh == 0.
+// repro::kBFloat16 runs the wgmma kernel, repro::kFloat32 the 3xTF32
+// mma.sync kernel; bases 16-byte aligned (TMA and cp.async need it); d in
+// {16, 32, 64, 128}; h % kh == 0.
 extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
                                       const void* v, void* o, int b, int sq,
                                       int sk, int h, int kh, int d, float scale,
                                       int causal, cudaStream_t stream) {
   if (dtype == repro::kFloat32)
-    return launch_fma(q, k, v, o, b, sq, sk, h, kh, d, scale, causal, stream);
+    return launch_tf32(q, k, v, o, b, sq, sk, h, kh, d, scale, causal, stream);
   if (dtype == repro::kBFloat16)
     return launch_wgmma(q, k, v, o, b, sq, sk, h, kh, d, scale, causal, stream);
   return static_cast<int>(cudaErrorInvalidValue);

@@ -50,13 +50,9 @@ constexpr float kNegInf = -1e30f;
 // tile straddles two splits (checked by Layout).
 constexpr int kSplitMultiple = 64;
 
-// 2^x by the SFU (ex2.approx, relative error about 2^-22): exact 0 for the
-// finite NEG_INF offsets of masked and empty running maxima.
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
+// 2^x by the SFU: exact 0 for the finite NEG_INF offsets of masked and
+// empty running maxima.
+using repro::fast_exp2;
 
 template <typename T, int D>
 struct Layout {

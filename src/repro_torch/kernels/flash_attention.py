@@ -5,11 +5,12 @@ Replaces ``repro/kernels/flash_attention.py::flash_attention``: q
 head h // (H // KH); float32 logits ``(q * scale) . k``, with ``causal`` a
 query at row i seeing the keys at or before i + (Sk - Sq); the output cast
 to the inputs' dtype. The kernels are in ``csrc/flash_attention.cu``, one
-design per dtype (:data:`DESIGNS`): bfloat16 runs on the tensor cores
-(wgmma, with Q, K and V copied by TMA), float32 as float32 FMAs (a TF32
-product would fail the float32 limit). ``flash_attention_plain`` beside
-them is the same function in plain PyTorch, which the wrapper runs for
-tensors on the CPU.
+design per dtype (:data:`DESIGNS`), both on the tensor cores: bfloat16
+as wgmma, with Q, K and V copied by TMA; float32 as 3xTF32 mma.sync (each
+operand split in two TF32 terms, since one TF32 product would fail the
+float32 limit), with K and V copied by cp.async. ``flash_attention_plain``
+beside them is the same function in plain PyTorch, which the wrapper runs
+for tensors on the CPU.
 
 One deliberate divergence from the JAX package: a query row that sees no
 key (causal with Sq > Sk) is 0 here, in the kernel and the plain version
@@ -30,7 +31,7 @@ from repro_torch.kernels.common import (DTYPE_CODES, NEG_INF, check_aligned,
 HEAD_DIMS = (16, 32, 64, 128)  # the kernel's instances (flash_attention.cu)
 # the design each dtype runs on the card: a label (chip_smoke.py prints it);
 # flash_attention_launch picks the kernel from the dtype code
-DESIGNS = {torch.bfloat16: "wgmma", torch.float32: "fma"}
+DESIGNS = {torch.bfloat16: "wgmma", torch.float32: "3xtf32 mma.sync"}
 
 
 def _check_shapes(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -89,8 +90,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     On CUDA tensors this launches the kernel of the dtype's design
     (:data:`DESIGNS`; counted in ``flash_attention.launches``; D must be one
-    of :data:`HEAD_DIMS`; bfloat16 tensors must start on 16-byte boundaries,
-    as TMA needs, and take scale > 0); on CPU tensors it runs
+    of :data:`HEAD_DIMS`; the tensors must start on 16-byte boundaries, as
+    TMA and cp.async need; bfloat16 takes scale > 0); on CPU tensors it runs
     :func:`flash_attention_plain`.
     """
     d, _ = _check_shapes("flash_attention", q, k, v, 4)
@@ -101,10 +102,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {d} has no kernel instance; "
                          f"supported: {HEAD_DIMS}")
-    if q.dtype == torch.bfloat16:  # the wgmma kernel, as flash_attention_launch picks
-        check_aligned("flash_attention", q=q, k=k, v=v)  # as TMA needs
-        if scale <= 0:  # the kernel scales each row's max, not each logit
-            raise ValueError(f"flash_attention: bfloat16 needs scale > 0, got {scale}")
+    check_aligned("flash_attention", q=q, k=k, v=v)  # as TMA and cp.async need
+    if q.dtype == torch.bfloat16 and scale <= 0:  # wgmma scales each row's max
+        raise ValueError(f"flash_attention: bfloat16 needs scale > 0, got {scale}")
     out = torch.empty_like(q)
     b, sq, h, _ = q.shape
     sk, kh = k.shape[1], k.shape[2]

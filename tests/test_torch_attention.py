@@ -158,8 +158,9 @@ def test_two_bf16_terms_of_p_leave_only_the_output_rounding():
 
 
 def test_designs_follow_the_dtype():
-    assert DESIGNS == {torch.bfloat16: "wgmma", torch.float32: "fma"}
-    assert SMOKE.designs("flash_attention") == {"bfloat16": "wgmma", "float32": "fma"}
+    assert DESIGNS == {torch.bfloat16: "wgmma", torch.float32: "3xtf32 mma.sync"}
+    assert SMOKE.designs("flash_attention") == {"bfloat16": "wgmma",
+                                                "float32": "3xtf32 mma.sync"}
     for name in _build.KERNELS:
         designs = SMOKE.designs(name)
         assert designs and set(designs) <= {"float32", "bfloat16", "int32", "uint32"}, name

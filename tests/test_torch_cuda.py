@@ -231,6 +231,42 @@ def test_flash_attention_bf16_tensor_core_design(dev, b, sq, sk, h, kh, causal, 
     assert torch.equal(flash_attention(q, k, v, causal=causal), got)  # no atomics
 
 
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("b,sq,sk,h,kh,causal", [
+    (1, 200, 200, 4, 4, True),      # g = 1, Sq not a multiple of 16
+    (2, 100, 37, 8, 2, True),       # g = 4, Sq > Sk: rows that see no key are 0
+    (1, 130, 300, 8, 1, True),      # g = 8, a prefix (Sq < Sk)
+    (2, 77, 150, 8, 2, False),      # non-causal, neither a multiple of 32
+    (1, 1000, 1937, 32, 8, True),   # Jamba's heads, ragged: a long row
+])
+def test_flash_attention_f32_tensor_core_design(dev, b, sq, sk, h, kh, causal, d):
+    """3xTF32 on mma.sync within the float32 row-scaled limit (one TF32
+    product would fail it), the rows that see no key exactly 0, and two
+    calls give the same bits."""
+    q = _randn(dev, b, sq, h, d, seed=18)
+    k = _randn(dev, b, sk, kh, d, seed=19)
+    v = _randn(dev, b, sk, kh, d, seed=20)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches == before + 1
+    _hold(got, flash_attention_plain(q, k, v, causal=causal))
+    if causal and sq > sk:
+        assert torch.all(got[:, :sq - sk] == 0)
+    assert torch.equal(flash_attention(q, k, v, causal=causal), got)
+
+
+def test_flash_attention_f32_refuses_a_misaligned_view(dev):
+    """K and V arrive by 16-byte cp.async: a view 4 bytes in is refused."""
+    base = _randn(dev, 1 * 64 * 4 * 64 + 4, seed=22)
+    aligned, odd = base[4:].view(1, 64, 4, 64), base[1:1 + 64 * 4 * 64].view(1, 64, 4, 64)
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        flash_attention(aligned, odd, aligned)
+    assert flash_attention.launches == before
+    _hold(flash_attention(aligned, aligned, aligned),
+          flash_attention_plain(aligned, aligned, aligned))
+
+
 def test_flash_attention_bf16_refuses_a_misaligned_view(dev):
     """TMA reads from 16-byte aligned bases: a view 2 bytes in is refused,
     not copied and not run through the plain version."""
@@ -277,6 +313,7 @@ def test_flash_decode_kernel_matches_plain(dev, b, s, h, kh, d, lens, dtype):
 
 @pytest.mark.parametrize("b,s,dm,n,chunk", [
     (2, 64, 16, 8, 16), (1, 96, 8, 4, 32), (1, 100, 200, 16, 32), (2, 1024, 256, 16, 64),
+    (1, 77, 1001, 8, 16),   # Dm not a multiple of 4: the 4-byte copies
 ])
 def test_mamba_scan_kernel_matches_plain(dev, b, s, dm, n, chunk):
     args = (_randn(dev, b, s, dm, scale=0.5, seed=9), _randn(dev, b, s, dm, scale=0.1, seed=10),
@@ -287,6 +324,27 @@ def test_mamba_scan_kernel_matches_plain(dev, b, s, dm, n, chunk):
     got = mamba_scan(*args, chunk=chunk)
     assert mamba_scan.launches == before + 1
     _hold(got, mamba_scan_plain(*args, chunk=chunk))
+
+
+@pytest.mark.parametrize("chunk", [1, 7])
+@pytest.mark.parametrize("n", [4, 8, 16])
+def test_mamba_scan_staged_design_and_final_state(dev, n, chunk):
+    """Dm 1000 (not a multiple of a block's 64 channels), batch 2, S 4096
+    (128 staged tiles): y with D folded in and the final state h, within
+    the float32 row-scaled limit of the plain version; chunk sets nothing."""
+    b, s, dm = 2, 4096, 1000
+    args = (_randn(dev, b, s, dm, scale=0.5, seed=23), _randn(dev, b, s, dm, scale=0.1, seed=24),
+            -torch.exp(_randn(dev, dm, n, scale=0.3, seed=25)),
+            _randn(dev, b, s, n, scale=0.5, seed=26), _randn(dev, b, s, n, scale=0.5, seed=27),
+            _randn(dev, dm, scale=0.1, seed=28))
+    before = mamba_scan.launches
+    y, h = mamba_scan(*args, chunk=chunk, return_state=True)
+    assert mamba_scan.launches == before + 1
+    assert h.shape == (b, dm, n) and h.dtype == torch.float32
+    want_y, want_h = mamba_scan_plain(*args, chunk=chunk, return_state=True)
+    _hold(y, want_y)
+    _hold(h, want_h)
+    assert torch.equal(mamba_scan(*args, chunk=64), y)
 
 
 def test_fused_kernels_refuse_what_they_have_no_instance_for(dev):
