@@ -5,6 +5,11 @@ Run from the root of a checkout on a machine with one CUDA card and nvcc:
 
     python3 chip_smoke.py
 
+Before anything else it starts one pool of compile worker processes and
+hands it every O3 chain of the quick plan and then those the table2 plan
+adds, each plan's longest first; they compile while the kernels build and
+are checked, and each plan's session waits only for its own chains.
+
 Phases, each of which must pass:
 
 1. build the CUDA kernels from ``src/repro_torch/csrc`` (into ``build/``),
@@ -17,12 +22,19 @@ Phases, each of which must pass:
    split-KV instances and 128-bit loads and stores (LDG.E.128, STG.E.128)
    in each of K4's vector instances; and in K1's timed fma chain at n 64 a
    clock read before the first of its 64 FFMAs and one after the last,
-   with no branch between them (counts printed); and ptxas must report 0
+   with no branch between them (counts printed); K2's uint32 divides and
+   high multiply show their divisor classes (a step of div.u.regular runs
+   no MUFU.RCP, IMAD.HI or IMAD.WIDE; of div.u.irregular a wide or high
+   multiply and no MUFU.RCP; div.u.runtime and rem.u hold the divide
+   sequence's MUFU.RCP; a step of mul64hi a wide or high multiply), and a
+   step of each holds what its row's notes name; and ptxas must report 0
    spill bytes for each instance of K5 float32 and of K7;
 2. hold each kernel against its plain PyTorch version on the card: K1-K3 at
    the quick plan's shapes and one larger shape (alu_chain within rtol
    1e-5, in both its forms, the timed one's cycles all positive; op_chain
-   and chase bit-exact); K4-K7 at the fused plan's unit
+   and chase bit-exact, op_chain in every step, the table2 rows' uint32
+   divides and high multiply included, at unroll 1 and 32, and on each
+   registry row's own inputs); K4-K7 at the fused plan's unit
    workloads and at the widths of Jamba-v0.1 52B (d_model 4096, 32 heads,
    8 KV heads, head dim 128, Mamba Dm 8192, N 16, chunk 64), every element
    within ``tol * (|want| + rms(want's row))``, tol 2^-7 in bfloat16 (one
@@ -46,12 +58,23 @@ Phases, each of which must pass:
    must measure every row of the plan, with no failure, and launch K1-K3;
    its kernel.alu_chain.fma row must be timed by the SM clock sandwich
    (notes ``clock=sm_clock64@<MHz>``), every other row by CUDA events;
-4. the same for ``characterize --plan fused``: it must launch K4-K7 and
+4. run ``characterize --plan table2`` through the CLI on the quick plan's
+   DB (the 32 probes the two share are cache hits), the launch counts set
+   to 0 just before and read just after: every probe of the plan must end
+   with a record timed by CUDA events, and K2 must be launched; a probe
+   may fail only where the SASS of its O3 chain shows under one
+   instruction a step (the compiler folded the chain), which is printed
+   as the evidence. Each half-precision row's O3 chain must equal its
+   eager chain bit for bit at n 64 and 512 (the chains' results come from
+   the compile workers), and a step of it must run what its notes name.
+   It prints each O3 chain's compile seconds by phase, and a line per row:
+   ns a step at O0 and O3, MAD, net, what an O3 step runs, and its notes;
+5. the same for ``characterize --plan fused``: it must launch K4-K7 and
    measure the flash_attention, flash_decode and mamba_scan rows; the
    rmsnorm row may end as a NoisySlopeError failure (its row blocks run in
    parallel, so its slope is near the clock's resolution), and the script
    prints which;
-5. time each kernel, its plain version, its bound (the larger of bytes
+6. time each kernel, its plain version, its bound (the larger of bytes
    and operations; K5 float32's operations at the least of float32 FMAs,
    3xTF32 and 3xBF16 on the tensor cores, the choice printed; K7's at its
    float32 operations, its exponentials on the SFU alone printed beside
@@ -69,7 +92,7 @@ Phases, each of which must pass:
    kernel.alu_chain.fma row, must have none), print the calibrated SM
    clock, and time op_chain's loop: each step's time with 1 and with 32
    steps to an iteration;
-6. print the ``{"kernels": [...]}`` line (each kernel with the design each
+7. print the ``{"kernels": [...]}`` line (each kernel with the design each
    dtype runs), the card's name and power limit, and, last, ``{"ok": true,
    "device": {...}}``.
 
@@ -81,6 +104,7 @@ from __future__ import annotations
 import importlib
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -144,7 +168,10 @@ def check_kernels(dev: torch.device) -> dict[str, float]:
     from repro_torch.core.membench import build_ring
     from repro_torch.kernels.alu_chain import OPS, alu_chain, alu_chain_plain, alu_chain_timed
     from repro_torch.kernels.chase import chase, chase_plain
-    from repro_torch.kernels.opchain import STEPS, UNROLLS, op_chain, op_chain_plain
+    from repro_torch.core.chains import default_registry, spec_by_name
+    from repro_torch.kernels.opchain import DIVIDES, STEPS, UNROLLS, op_chain, op_chain_plain
+
+    chain_names = {s.name for s in default_registry()}
 
     def timed(x, a, n, op):  # the form the quick plan launches on the card
         out, cycles = alu_chain_timed(x, a, n=n, op=op)
@@ -175,9 +202,11 @@ def check_kernels(dev: torch.device) -> dict[str, float]:
     for step, (dtype, n_ops, _) in STEPS.items():
         np_dtype = np.int32 if dtype == torch.int32 else np.uint32
         for shape in ((), (8, 128), (256, 1024)):
-            draw = lambda: torch.from_numpy(np.asarray(  # noqa: E731
-                rng.randint(0, 2 ** 32, shape, dtype=np.uint64).astype(np_dtype))).to(dev)
-            x, ops = draw(), tuple(draw() for _ in range(n_ops))
+            draw = lambda low=0: torch.from_numpy(np.asarray(  # noqa: E731
+                rng.randint(low, 2 ** 32, shape, dtype=np.uint64).astype(np_dtype))).to(dev)
+            # a divide's divisor is nonzero (x / 0 has no defined result)
+            x = draw()
+            ops = tuple(draw(1 if i == 0 and step in DIVIDES else 0) for i in range(n_ops))
             for n in (1, 45, 64, 512):
                 want = op_chain_plain(x, *ops, step=step, n=n).cpu()
                 for unroll in UNROLLS:
@@ -185,8 +214,17 @@ def check_kernels(dev: torch.device) -> dict[str, float]:
                     if not torch.equal(got, want):
                         fail(f"op_chain {step} n={n} unroll={unroll} {shape}: "
                              "differs from the plain version")
+        if step in chain_names:  # and the registry row's own carry and operands
+            spec = spec_by_name(step)
+            x, ops = spec.carry(dev), spec.operand_tensors(dev)
+            want = op_chain_plain(x, *ops, step=step, n=512).cpu()
+            for unroll in UNROLLS:
+                if not torch.equal(op_chain(x, *ops, step=step, n=512, unroll=unroll).cpu(), want):
+                    fail(f"op_chain {step} on the row's inputs, n=512 unroll={unroll}: "
+                         "differs from the plain version")
     print(f"K2 op_chain: steps {tuple(STEPS)} x n in (1, 45, 64, 512) x unroll "
-          f"{UNROLLS} x (), (8, 128), (256, 1024) bit-exact")
+          f"{UNROLLS} x (), (8, 128), (256, 1024), and each registry row's own "
+          "inputs at n 512, bit-exact")
 
     for ws in (1 << 13, 1 << 17, 1 << 21, 1 << 25):
         ring, start = build_ring(ws, device=dev)
@@ -540,23 +578,21 @@ def check_fused_kernels(dev: torch.device, cases: dict) -> tuple[dict, dict]:
     return err, jamba
 
 
-def run_quick(dev: torch.device) -> dict[str, int]:
-    """Phase 3: the quick plan through the CLI; returns each kernel's
-    launches during that run."""
+def run_quick(dev: torch.device, db_path: str) -> dict[str, int]:
+    """Phase 3: the quick plan through the CLI into ``db_path``; returns each
+    kernel's launches during that run."""
     from repro_torch.api.cli import main as cli_main
     from repro_torch.api.plan import named_plan
     from repro_torch.core.latency_db import LatencyDB, current_environment
     from repro_torch.kernels.ops import KERNELS
 
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-        db_path = str(Path(tmp) / "quick_db.json")
-        for k in KERNELS:
-            k.launches = 0
-        rc = cli_main(["characterize", "--plan", "quick", "--db", db_path, "--table"])
-        launches = {k.__name__: k.launches for k in KERNELS}
-        if rc != 0:
-            fail(f"characterize --plan quick exited {rc}")
-        db = LatencyDB(db_path)
+    for k in KERNELS:
+        k.launches = 0
+    rc = cli_main(["characterize", "--plan", "quick", "--db", db_path, "--table"])
+    launches = {k.__name__: k.launches for k in KERNELS}
+    if rc != 0:
+        fail(f"characterize --plan quick exited {rc}")
+    db = LatencyDB(db_path)
     env = current_environment(dev)
     if db.failures():
         fail(f"ProbeFailures in the quick DB: {[f.op for f in db.failures()]}")
@@ -577,6 +613,196 @@ def run_quick(dev: torch.device) -> dict[str, int]:
     for name in QUICK_KERNELS:
         if launches[name] == 0:
             fail(f"kernel {name} was not launched by the quick run")
+    return launches
+
+
+# ------------------------------------------------------------ table2
+def loaded_inductor_modules() -> list:
+    """Every module Inductor's code cache has loaded in this process (the
+    generated wrappers and their Triton kernels)."""
+    from torch._inductor.codecache import PyCodeCache
+    return [*PyCodeCache.modules, *PyCodeCache.modules_no_attr.values()]
+
+
+def triton_cubins(modules: list) -> list[Path]:
+    """The cubins of the Triton kernels that ``modules`` hold, found by each
+    launcher's cache hash under Triton's cache directories."""
+    from torch._inductor.runtime.triton_heuristics import CachingAutotuner
+    try:
+        from torch._inductor.runtime.cache_dir_utils import cache_dir, triton_cache_dir
+    except ImportError:  # an older layout of the same helpers
+        from torch._inductor.runtime.runtime_utils import cache_dir, triton_cache_dir
+    roots = [Path(triton_cache_dir(0)), Path(cache_dir())]
+    hashes = {launcher.cache_hash for mod in modules for obj in vars(mod).values()
+              if isinstance(obj, CachingAutotuner) for launcher in obj.launchers}
+    cubins = set()
+    for h in hashes:
+        found = sorted((roots[0] / h).glob("*.cubin")) or sorted(roots[1].rglob(f"{h}/*.cubin"))
+        cubins.update(found)
+    return sorted(cubins)
+
+
+def warm_and_read(fn, *args) -> dict:
+    """The compile pool's runner: a warm task (``measure.warm_chain``), then
+    the SASS of the Triton kernels that task loaded, as a count of each
+    mnemonic (``"sass"``) over its cubins (``"cubins"``)."""
+    from collections import Counter
+
+    before = {id(m) for m in loaded_inductor_modules()}
+    result = fn(*args)
+    cubins = triton_cubins([m for m in loaded_inductor_modules() if id(m) not in before])
+    sass = Counter()
+    for cubin in cubins:
+        for body in sass_functions(cubin).values():
+            sass.update(sass_mnemonics(body))
+    return {**result, "sass": dict(sass), "cubins": len(cubins)}
+
+
+# compile phases (Dynamo's and Inductor's timers, measure.compile_phases) by
+# the name printed for them; each a sum of timers, nested ones not repeated
+COMPILE_PHASES = {
+    "dynamo": ("bytecode_tracing",),
+    "backend": ("OutputGraph.call_user_compiler",),
+    "lower": ("GraphLowering.run",),
+    "sched": ("Scheduler.__init__",),
+    "codegen": ("Scheduler.codegen",),
+    "load": ("PyCodeCache.load_by_key_path",),
+    "triton": ("async_compile.precompile", "CachingAutotuner.precompile",
+               "CachingAutotuner.benchmark_all_configs"),
+}
+
+
+def compile_table(pool, rows: list[str]) -> dict[tuple[str, int], dict]:
+    """Each O3 chain the pool warmed for ``rows``: print its compile seconds
+    by phase (COMPILE_PHASES) and its SASS size, then the sums by chain
+    length; returns the results by (row, n)."""
+    results = {}
+    for (_, _, name, level, n, _), fut in pool.futures.items():
+        if name in rows and fut.done() and not fut.cancelled() and fut.exception() is None:
+            results[(name, n)] = fut.result()
+
+    def cols(phases: dict) -> str:
+        return " ".join(f"{k} {sum(phases.get(t, 0.0) for t in ts):.1f}"
+                        for k, ts in COMPILE_PHASES.items())
+
+    for (name, n), r in sorted(results.items(), key=lambda kv: -kv[1]["s"]):
+        print(f"compile: {name}@O3 n {n}: {r['s']:.1f} s ({cols(r['phases'])}); "
+              f"{sum(r['sass'].values())} SASS instructions in {r['cubins']} cubin(s)")
+    for n in sorted({n for _, n in results}):
+        mine = [r for (_, m), r in results.items() if m == n]
+        total = {}
+        for r in mine:
+            for k, v in r["phases"].items():
+                total[k] = total.get(k, 0.0) + v
+        print(f"compile: {len(mine)} chains of n {n}: {sum(r['s'] for r in mine):.1f} s "
+              f"({cols(total)})")
+    return results
+
+
+def per_step_sass(results: dict, name: str, lens: tuple[int, int]) -> tuple[float, dict]:
+    """What one step of row ``name``'s O3 chain runs: the SASS of its chain
+    at the longer length less that at the shorter, over the steps between
+    (instructions a step, and each mnemonic's count a step)."""
+    a, b = results[(name, lens[0])]["sass"], results[(name, lens[1])]["sass"]
+    steps = lens[1] - lens[0]
+    delta = {m: (b.get(m, 0) - a.get(m, 0)) / steps for m in set(a) | set(b)}
+    per = {m: d for m, d in sorted(delta.items(), key=lambda kv: -kv[1]) if abs(d) >= 0.05}
+    return sum(b.values()) / steps - sum(a.values()) / steps, per
+
+
+def run_table2(dev: torch.device, db_path: str, pool) -> dict[str, int]:
+    """Phase 4: the table2 plan through the CLI on the quick plan's DB (its
+    32 probes shared with quick are cache hits); returns each kernel's
+    launches during that run. Every probe of the plan must end with a
+    record timed by CUDA events, K2 must be launched, and each half
+    precision row's O3 chain must equal its eager chain bit for bit at both
+    lengths. A probe may fail only where the SASS of its O3 chain shows
+    fewer than one instruction a step (the compiler folded the chain)."""
+    from repro_torch.api.cli import main as cli_main
+    from repro_torch.api.plan import named_plan
+    from repro_torch.core import chains, measure
+    from repro_torch.core.latency_db import LatencyDB, current_environment
+    from repro_torch.kernels.ops import KERNELS
+
+    for k in KERNELS:
+        k.launches = 0
+    rc = cli_main(["characterize", "--plan", "table2", "--db", db_path, "--table"])
+    launches = {k.__name__: k.launches for k in KERNELS}
+    db = LatencyDB(db_path)
+    env = current_environment(dev)
+    plan = named_plan("table2")
+    registry = chains.default_registry()
+    lens = measure._CHAIN_LENS["O3"]
+    results = compile_table(pool, [s.name for s in registry])
+
+    folded = {}
+    for spec in registry:
+        if spec.kernel is not None:
+            continue
+        if any((spec.name, n) not in results for n in lens):
+            if spec.dtype in measure.HALF_DTYPES:
+                fail(f"{spec.name}@O3: no compile worker result at n {lens}")
+            continue
+        per, hist = per_step_sass(results, spec.name, lens)
+        if per < 1.0:
+            folded[spec.name] = (per, hist)
+        if spec.dtype in measure.HALF_DTYPES:  # F3: every step rounds
+            for n in lens:
+                eager = chains.chain_fn(spec, n)(spec.carry(dev), *spec.operand_tensors(dev))
+                got = results[(spec.name, n)]["out"]
+                if got != eager.item():
+                    fail(f"{spec.name}@O3 n {n}: {got!r}, its eager chain {eager.item()!r}")
+            claimed = measure.HALF_O3_STEP_SASS[spec.name].split("+")
+            if not all(sum(c for m, c in hist.items() if m.startswith(p)) >= 0.99
+                       for p in claimed):
+                fail(f"{spec.name}@O3: a step does not run each of {claimed} (its notes): "
+                     f"{hist}")
+            print(f"table2: {spec.name}@O3 equals its eager chain at n {lens}; "
+                  f"a step runs {per:.2f} instructions: {hist}")
+
+    for name, (per, hist) in folded.items():
+        counts = [sum(results[(name, n)]["sass"].values()) for n in lens]
+        print(f"table2: {name}@O3 is folded by the compiler: its kernel holds {counts[0]} "
+              f"SASS instructions at n {lens[0]} and {counts[1]} at n {lens[1]}, "
+              f"{per:.3f} a step ({hist}); its O3 row times no chain of steps")
+    failures = {(f.op, f.opt_level): f for f in db.failures()}
+    for probe in plan:
+        rec = db.get(probe.key(env))
+        if rec is None:
+            f = failures.get((probe.op, probe.opt_level))
+            if probe.opt_level == "O3" and probe.op in folded:
+                print(f"table2: {probe.op}@O3 failed ({f.error_type}: {f.message}); its "
+                      "O3 chain is folded (above)")
+                continue
+            fail(f"no record for {probe.op}@{probe.opt_level}: {f}")
+        if not (math.isfinite(rec.latency_ns) and rec.latency_ns >= 0 and rec.n_samples > 0
+                and "clock=events" in rec.notes):
+            fail(f"bad record {rec}")
+    for spec in registry:
+        cells = []
+        for level in ("O0", "O3"):
+            rec = db.get((env["device_kind"], env["backend"], env["jax_version"], level,
+                          spec.name, spec.dtype))
+            cells.append(f"{level} " + ("failed" if rec is None else
+                                        f"{rec.latency_ns:.1f} ns (MAD {rec.mad_ns:.1f}, "
+                                        f"net {rec.net_latency_ns:.1f})"))
+        sass = ""
+        if spec.kernel is None and all((spec.name, n) in results for n in lens):
+            per, hist = per_step_sass(results, spec.name, lens)
+            same = ["=" if results[(spec.name, n)]["out"] == chains.chain_fn(spec, n)(
+                spec.carry(dev), *spec.operand_tensors(dev)).item() else "!=" for n in lens]
+            sass = (f"; O3 result {'/'.join(same)} eager at n {lens[0]}/{lens[1]}"
+                    f"; O3 step {per:.2f} SASS: "
+                    + ", ".join(f"{m} {c:g}" for m, c in list(hist.items())[:4]))
+        print(f"table2: {spec.category} {spec.name} {spec.dtype}: {'; '.join(cells)}{sass}; "
+              f"notes: {(rec.notes if rec is not None else spec.notes)}")
+    if rc != (1 if failures else 0):
+        fail(f"characterize --plan table2 exited {rc} with {len(failures)} failures")
+    print(f"table2: {len(plan) - len(failures)} of the {len(plan)} probes recorded, "
+          f"{len(failures)} failed ({', '.join(f'{o}@{l}' for o, l in failures)}); "
+          f"launches {launches}")
+    if launches["op_chain"] == 0:
+        fail("kernel op_chain was not launched by the table2 run")
     return launches
 
 
@@ -862,11 +1088,13 @@ def decode_passes(cases: dict, reps: int = 20) -> dict[str, dict[str, float]]:
     return out
 
 
-def time_kernels(dev: torch.device, err: dict, launches: dict) -> list[dict]:
-    """Phase 4: each kernel at the largest call the quick plan makes of it:
+def time_kernels(dev: torch.device, err: dict, *plan_launches: dict) -> list[dict]:
+    """Phase 6: each kernel at the largest call the quick plan makes of it:
     the kernel's time on the card (CUDA events behind a lead, as the probes
     time), the plain version's wall time to completion (it may wait for the
-    card inside, as the chase's host loop does), and the bound."""
+    card inside, as the chase's host loop does), and the bound; its
+    launches summed over the plans' runs (quick's and table2's)."""
+    launches = {k: sum(p.get(k, 0) for p in plan_launches) for k in plan_launches[0]}
     from repro_torch.core.chains import KERNEL_CHAIN_UNROLL
     from repro_torch.core.membench import build_ring
     from repro_torch.core.timing import Timer
@@ -990,6 +1218,28 @@ def clock_study(dev: torch.device, trials: int = 20, reps: int = 5) -> None:
         fail(f"the SM clock sandwich gave {bad} of {trials} non-positive slopes for {label}")
 
 
+def sass_functions(binary: Path) -> dict[str, list[str]]:
+    """Each function's SASS instruction lines in a shared library or cubin
+    (``cuobjdump -sass``), by mangled name."""
+    from repro_torch.kernels import _build
+
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(cuobjdump), "-sass", str(binary)],
+                         capture_output=True, text=True, check=True).stdout
+    funcs = {}
+    for block in out.split("Function : ")[1:]:
+        name, _, body = block.partition("\n")
+        funcs[name.strip()] = [ln for ln in body.splitlines() if re.search(r"/\*[0-9a-f]{4,}\*/", ln)]
+    return funcs
+
+
+def sass_mnemonics(body: list[str]) -> list[str]:
+    """Each instruction's full mnemonic (HMMA.1688.F32.TF32, MUFU.EX2, ...)."""
+    found = (re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", ln)
+             for ln in body)
+    return [m.group(1) for m in found if m]
+
+
 def sass_checks(build: Path) -> None:
     """What each design promises, in the SASS of the built libraries (counts
     printed; a missing one fails): K5's bf16 instances run HGMMA (wgmma; or
@@ -998,24 +1248,13 @@ def sass_checks(build: Path) -> None:
     .128); each of K4's 16 vector instances (float32 E 4, bfloat16 E 8)
     loads by LDG.E.128 and stores by STG.E.128; K1's timed fma chain at
     n 64 reads the clock before the first of its 64 FFMAs and after the
-    last, with no branch between the reads."""
-    import re
-
-    from repro_torch.kernels import _build
-
-    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
-
+    last, with no branch between the reads; and K2's uint32 divides and
+    high multiply show their divisor classes (:func:`k2_sass_checks`)."""
     def functions(lib: str) -> dict[str, list[str]]:
-        out = subprocess.run([str(cuobjdump), "-sass", str(build / f"lib{lib}.so")],
-                             capture_output=True, text=True, check=True).stdout
-        funcs = {}
-        for block in out.split("Function : ")[1:]:
-            name, _, body = block.partition("\n")
-            funcs[name.strip()] = [ln for ln in body.splitlines() if re.search(r"/\*[0-9a-f]{4}\*/", ln)]
-        return funcs
+        return sass_functions(build / f"lib{lib}.so")
 
     def op(line: str) -> str:
-        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
         return m.group(1) if m else ""
 
     wgmma = {n: body for n, body in functions("flash_attention").items()
@@ -1030,11 +1269,7 @@ def sass_checks(build: Path) -> None:
         print(f"sass: K5 {name.split('wgmma_kernel')[-1][:12]}: "
               + ", ".join(f"{n} {o}" for o, n in counts.items()) + f", {len(body)} instructions")
 
-    def mnemonics(body: list[str]) -> list[str]:
-        """Each instruction's full mnemonic (HMMA.1688.F32.TF32, MUFU.EX2, ...)."""
-        found = (re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", ln)
-                 for ln in body)
-        return [m.group(1) for m in found if m]
+    mnemonics = sass_mnemonics
 
     tf32 = {n: body for n, body in functions("flash_attention").items()
             if "flash_attention_tf32_kernel" in n}
@@ -1107,13 +1342,70 @@ def sass_checks(build: Path) -> None:
           f"{len(ffma)} FFMAs between {ffma[0]} and {ffma[-1]}, no branch; each read and "
           "the instruction before it: "
           + "; ".join(f"{i}: {text[i - 1]} | {text[i]}" for i in clock))
+    k2_sass_checks(functions, mnemonics)
+
+
+# K2's uint32 divides and high multiply (op_chain.cu's step structs) and
+# what a step of each runs, from the SASS: (struct, a step must run one of,
+# a step must run none of, the instance must hold). A step's counts are the
+# unroll-32 instance's less the unroll-1 instance's, over the 31 steps
+# between, so the address arithmetic cancels. A mnemonic matches by prefix
+# (IMAD.HI matches IMAD.HI.U32). A runtime divisor's reciprocal (MUFU.RCP)
+# depends on the divisor alone and may be taken once, out of the loop.
+K2_SASS = {
+    "div.u.regular": ("DivU8", (), ("MUFU.RCP", "IMAD.HI", "IMAD.WIDE"), ()),  # a shift
+    "div.u.irregular": ("DivU6", ("IMAD.HI", "IMAD.WIDE"), ("MUFU.RCP",), ()),  # magic multiply
+    "div.u.runtime": ("DivURuntime", (), (), ("MUFU.RCP",)),  # the divide sequence
+    "rem.u": ("RemU", (), (), ("MUFU.RCP",)),
+    "mul64hi": ("Mul64Hi", ("IMAD.WIDE", "IMAD.HI"), (), ()),  # the high word
+}
+
+
+def k2_step_sass(functions, mnemonics) -> dict[str, tuple[dict, dict]]:
+    """Each K2 step of ``K2_SASS``: (what one step runs, as each mnemonic's
+    count a step; each unroll instance's count of each mnemonic)."""
+    from collections import Counter
+
+    out = {}
+    for step, (struct, _, _, _) in K2_SASS.items():
+        found = {int(re.search(r"Li(\d+)EEEv", n).group(1)): Counter(mnemonics(b))
+                 for n, b in functions("op_chain").items() if f"{struct}E" in n}
+        if sorted(found) != [1, 32]:
+            fail(f"expected K2's {struct} at unroll 1 and 32 in the SASS, found {sorted(found)}")
+        per = {m: (found[32][m] - found[1][m]) / 31 for m in found[32] | found[1]}
+        out[step] = ({m: c for m, c in sorted(per.items(), key=lambda kv: -kv[1]) if c > 0},
+                     found)
+    return out
+
+
+def k2_sass_checks(functions, mnemonics) -> None:
+    """The divisor class of each of K2's uint32 rows, and mul64hi's high
+    word, in the SASS: ``K2_SASS``; what one step runs is printed, and it
+    holds each mnemonic the row's notes name (``opchain.STEP_SASS``)."""
+    from repro_torch.kernels.opchain import STEP_SASS
+    for step, (per, found) in k2_step_sass(functions, mnemonics).items():
+        _, one_of, none_of, holds = K2_SASS[step]
+        has = lambda p: sum(c for m, c in per.items() if m.startswith(p))  # noqa: E731
+        held = {p: [sum(c for m, c in found[u].items() if m.startswith(p)) for u in (1, 32)]
+                for p in holds}
+        print(f"sass: K2 {step}: a step runs {sum(per.values()):.2f} instructions: "
+              + ", ".join(f"{m} {c:.2f}" for m, c in per.items())
+              + "".join(f"; {p} in the unroll 1 / 32 instances: {n[0]} / {n[1]}"
+                        for p, n in held.items()))
+        if one_of and not any(has(p) for p in one_of):
+            fail(f"K2 {step}: a step runs none of {one_of} ({per})")
+        if any(has(p) for p in none_of):
+            fail(f"K2 {step}: a step runs one of {none_of} ({per})")
+        if any(0 in n for n in held.values()):
+            fail(f"K2 {step}: an instance lacks one of {holds} ({held})")
+        claimed = STEP_SASS[step].split("+")  # what the row's notes say a step runs
+        if not all(has(m) >= 0.99 for m in claimed):
+            fail(f"K2 {step}: a step does not run each of {claimed} (its notes): {per}")
 
 
 def spill_checks(build: Path) -> None:
     """ptxas must report 0 spill bytes for every instance of K5's float32
     design and of K7 (build.log keeps ptxas -v's lines)."""
-    import re
-
     log = (build / "build.log").read_text()
     found = re.findall(r"Function properties for (\S+)\n\s*\d+ bytes stack frame, "
                        r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
@@ -1160,6 +1452,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 1
+    from repro_torch.api.plan import named_plan
+    from repro_torch.api.session import CompilePool, compile_workers_for, warm_tasks
     from repro_torch.kernels import _build
     from repro_torch.kernels.common import resolve_device
 
@@ -1168,38 +1462,51 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(dev)}")
 
-    t0 = time.perf_counter()
-    build = _build.build()
-    print(f"library: {build} ({', '.join(f'lib{k}.so' for k in _build.KERNELS)})")
-    for line in (build / "build.log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry function" in line:
-            print(f"  ptxas: {line.strip()}")
-        elif line.startswith("== "):  # a source and its nvcc's return code
-            print(f"  nvcc: {line[3:]}")
-    sass_checks(build)
-    spill_checks(build)
-    phase("build", t0)
+    # one compile pool for the script, started before the build: the O3
+    # chains of quick, then those table2 adds, each plan's longest first
+    quick, table2 = named_plan("quick"), named_plan("table2")
+    tasks = warm_tasks(quick, dev) + warm_tasks(table2, dev)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with CompilePool(compile_workers_for(dev, len(tasks)), runner=warm_and_read) as pool, \
+            tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        pool.submit(tasks)
+        t0 = time.perf_counter()
+        build = _build.build()
+        print(f"library: {build} ({', '.join(f'lib{k}.so' for k in _build.KERNELS)})")
+        for line in (build / "build.log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry function" in line:
+                print(f"  ptxas: {line.strip()}")
+            elif line.startswith("== "):  # a source and its nvcc's return code
+                print(f"  nvcc: {line[3:]}")
+        sass_checks(build)
+        spill_checks(build)
+        phase("build", t0)
 
-    t0 = time.perf_counter()
-    err = check_kernels(dev)
-    cases = jamba_inputs(dev)
-    fused_err, jamba = check_fused_kernels(dev, cases)
-    phase("kernels", t0)
+        t0 = time.perf_counter()
+        err = check_kernels(dev)
+        cases = jamba_inputs(dev)
+        fused_err, jamba = check_fused_kernels(dev, cases)
+        phase("kernels", t0)
 
-    t0 = time.perf_counter()
-    launches = run_quick(dev)
-    phase("quick", t0)
+        db_path = str(Path(tmp) / "db.json")  # table2 runs on quick's DB
+        t0 = time.perf_counter()
+        launches = run_quick(dev, db_path)
+        phase("quick", t0)
 
-    t0 = time.perf_counter()
-    fused_launches = run_fused(dev)
-    phase("fused", t0)
+        t0 = time.perf_counter()
+        table2_launches = run_table2(dev, db_path, pool)
+        phase("table2", t0)
 
-    t0 = time.perf_counter()
-    kernels = time_kernels(dev, err, launches)
-    kernels += time_fused(dev, fused_err, jamba, cases, fused_launches)
-    clock_study(dev)
-    loop_study(dev)
-    phase("timing", t0)
+        t0 = time.perf_counter()
+        fused_launches = run_fused(dev)
+        phase("fused", t0)
+
+        t0 = time.perf_counter()
+        kernels = time_kernels(dev, err, launches, table2_launches)
+        kernels += time_fused(dev, fused_err, jamba, cases, fused_launches)
+        clock_study(dev)
+        loop_study(dev)
+        phase("timing", t0)
     phase("total", t_all)
 
     print(json.dumps({"kernels": kernels}))

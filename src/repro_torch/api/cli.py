@@ -6,6 +6,7 @@ Examples::
     python -m repro_torch characterize --plan quick --db db.json   # cache hits
     python -m repro_torch characterize --plan quick --db db.json --force
     python -m repro_torch characterize --plan quick --db db.json --device cpu
+    python -m repro_torch characterize --plan table2 --db db.json --table
     python -m repro_torch characterize --plan fused --db db.json --table
 
 It runs on ``cuda:0`` unless ``--device`` names another device; where the
@@ -38,7 +39,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="run a characterization plan into a LatencyDB")
     ch.add_argument("--plan", choices=PLAN_NAMES, default="quick",
                     help="named probe plan (default: quick; ported so far: "
-                         "quick, fused)")
+                         "quick, table2, fused)")
     ch.add_argument("--db", required=True,
                     help="LatencyDB JSON path (loaded if present; flushed "
                          "after every probe)")

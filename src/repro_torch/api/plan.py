@@ -2,7 +2,7 @@
 
 A :class:`Plan` is an ordered, duplicate-free tuple of probes; builders make
 the paper's sweeps, ``+`` composes plans and ``filter`` trims them. The
-algebra and the ``quick`` and ``fused`` plans are those of
+algebra and the ``quick``, ``table2`` and ``fused`` plans are those of
 ``repro.api.plan``, so both packages give the same ordered logical keys.
 The other named plans of the JAX package are not ported yet.
 """
@@ -29,7 +29,7 @@ QUICK_OPS = ("add", "mul", "mad", "div.s.regular", "div.s.irregular",
 PLAN_NAMES = ("quick", "table2", "memory", "inkernel", "memory-inkernel",
               "fused", "serving", "collectives", "serving-sharded", "slo",
               "full")
-PORTED_PLANS = ("quick", "fused")
+PORTED_PLANS = ("quick", "table2", "fused")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,6 +157,9 @@ def named_plan(name: str) -> Plan:
                 + Plan.instructions(ops=QUICK_OPS, opt_levels=("O0", "O3"))
                 + Plan.memory((1 << 13, 1 << 17, 1 << 21), steps=(512, 1536))
                 + Plan.kernels(("fma",)))
+    elif name == "table2":
+        plan = (Plan.clock_overhead(("O0", "O3"))
+                + Plan.instructions(opt_levels=("O0", "O3")))
     elif name == "fused":
         plan = Plan.fused()
     elif name in PLAN_NAMES:

@@ -30,6 +30,7 @@ from repro_torch.core.latency_db import LatencyRecord
 from repro_torch.core.optlevels import compile_at_level
 from repro_torch.core.timing import Measurement, Timer, sandwich_slope, sm_clock_hz
 from repro_torch.kernels.alu_chain import alu_chain, alu_chain_timed
+from repro_torch.kernels.opchain import STEP_SASS
 from repro_torch.utils import timestamp
 
 
@@ -94,9 +95,9 @@ class Probe:
         """Device-bound half: time what ``prepare`` built."""
         return self.run(ctx)
 
-    def warm_tasks(self, ctx: ProbeContext) -> list[tuple[Callable, tuple]]:
+    def warm_tasks(self, device: torch.device) -> list[tuple[Callable, tuple]]:
         """``(function, args)`` pairs a worker process may run to fill the
-        compile caches before :meth:`prepare` runs; picklable."""
+        compile caches before :meth:`prepare` runs on ``device``; picklable."""
         return []
 
     # ------------------------------------------------------------------ util
@@ -149,23 +150,32 @@ class InstructionProbe(Probe):
     def prepare(self, ctx: ProbeContext):
         return measure.prepare_op(self.spec, self.opt_level, ctx.device)
 
-    def warm_tasks(self, ctx: ProbeContext) -> list[tuple[Callable, tuple]]:
+    def warm_tasks(self, device: torch.device) -> list[tuple[Callable, tuple]]:
         if self.opt_level != "O3" or self.spec.kernel is not None:
             return []
-        return [(measure.warm_chain, (self.spec.name, self.opt_level, n, str(ctx.device)))
+        return [(measure.warm_chain, (self.spec.name, self.opt_level, n, str(device)))
                 for n in reversed(measure._CHAIN_LENS[self.opt_level])]  # longest first
 
     def run_prepared(self, ctx: ProbeContext, prepared) -> LatencyRecord:
         m = measure.run_prepared_op(prepared, ctx.timer)
+        on_card = ctx.device.type == "cuda"
         if self.spec.kernel is None:
-            return self._record(ctx, m, guard=self.spec.guard, notes=self.spec.notes)
+            opts = (measure.inductor_options(self.spec, ctx.device)
+                    if self.opt_level == "O3" else None)
+            step = measure.HALF_O3_STEP_SASS.get(self.spec.name) if opts and on_card else None
+            notes = " ".join(filter(None, (
+                self.spec.notes,
+                opts and "inductor=" + ",".join(f"{k}:{v}" for k, v in sorted(opts.items())),
+                step and f"step_sass={step}")))
+            return self._record(ctx, m, guard=self.spec.guard, notes=notes)
         # the guard runs inside the same launch: net it with the in-kernel
         # baseline, never with an eager dispatch
         launch = ("per-step" if self.opt_level == "O0" else
                   f"per-chain unroll={KERNEL_CHAIN_UNROLL}")
+        step = STEP_SASS.get(self.spec.kernel) if on_card else None
         notes = " ".join(filter(None, (
             self.spec.notes, f"kernel=op_chain.{self.spec.kernel}",
-            f"launch={launch}", "guard_base=op_chain.add")))
+            f"launch={launch}", "guard_base=op_chain.add", step and f"step_sass={step}")))
         return self._record(ctx, m, guard=self.spec.guard, notes=notes,
                             baseline=ctx.kernel_baseline_ns() if self.spec.guard else None)
 

@@ -16,15 +16,18 @@ guard baselines and a :class:`LatencyDB`-backed result cache — and runs
 
 Compiles are taken off the timing path before it starts: on the card the
 ``torch.compile`` chains of the pending probes are compiled in worker
-processes (:func:`compile_workers_for`), which fill Inductor's on-disk
-cache, so the in-process compile of each chain in ``prepare`` is a cache
-load.
+processes (:class:`CompilePool`, :func:`compile_workers_for`), longest
+chain first, which fill Inductor's on-disk cache, and each probe is
+prepared here as soon as its chains have landed (the in-process compile of
+a chain is then a cache load); only then are the probes timed, in plan
+order. A caller that runs several plans can open one pool for all of them
+and submit every chain at once (``chip_smoke.py`` does, before it builds
+the kernels); each session then waits only for its own chains.
 Processes, not threads: Inductor's code generation is Python and holds the
 interpreter lock. For the same reason the JAX package's compile-ahead
 thread (prepare probe N+1 while probe N times) is not ported: a Dynamo
-trace on a second thread stalls the eager dispatch the O0 rows time, so
-here each probe is prepared and then timed, in turn. The persistent compile
-cache of the JAX package is not ported yet.
+trace on a second thread stalls the eager dispatch the O0 rows time. The
+persistent compile cache of the JAX package is not ported yet.
 """
 from __future__ import annotations
 
@@ -92,14 +95,64 @@ class ResultSet:
         return len(self.results)
 
 
+def warm_tasks(probes, device: torch.device) -> list[tuple]:
+    """The probes' warm tasks (:meth:`Probe.warm_tasks`), the longest chain
+    first (a 512-op chain compiles several times longer than a 64-op one,
+    so the pool's last task is a short one)."""
+    tasks = [t for p in probes for t in p.warm_tasks(device)]
+    return sorted(tasks, key=lambda t: -t[1][2])  # stable: plan order within a length
+
+
+class CompilePool:
+    """Worker processes that run warm tasks (``(function, args)`` pairs),
+    spawned, not forked. A task submitted again shares the first
+    submission's future, so it runs once. While a pool is open as a
+    context manager it is :attr:`current`, and every :class:`Session` of
+    this process warms its chains in it instead of starting its own.
+    ``runner``, if given, runs each task as ``runner(function, *args)`` (a
+    caller that also reads what the task compiled)."""
+
+    current: "CompilePool | None" = None
+
+    def __init__(self, workers: int, runner=None):
+        self.workers = workers
+        self.runner = runner
+        self._executor = concurrent.futures.ProcessPoolExecutor(
+            max_workers=workers, mp_context=multiprocessing.get_context("spawn"))
+        self.futures: dict[tuple, concurrent.futures.Future] = {}
+
+    def submit(self, tasks: list[tuple]) -> list[concurrent.futures.Future]:
+        out = []
+        for fn, args in tasks:
+            key = (fn.__module__, fn.__qualname__, *args)
+            if key not in self.futures:
+                self.futures[key] = (self._executor.submit(fn, *args) if self.runner is None
+                                     else self._executor.submit(self.runner, fn, *args))
+            out.append(self.futures[key])
+        return out
+
+    def __enter__(self) -> "CompilePool":
+        CompilePool.current = self
+        return self
+
+    def __exit__(self, *exc) -> None:
+        CompilePool.current = None
+        self.close()
+
+    def close(self) -> None:
+        """Stop the workers (a task not started yet is dropped)."""
+        self._executor.shutdown(cancel_futures=True)
+
+
 def compile_workers_for(device: torch.device, n_tasks: int) -> int:
     """Worker processes for ``n_tasks`` warm tasks on ``device``: on CUDA one
-    per core but the one the session runs on, and no more than there are
-    tasks; on the CPU none (the chains compile in the session's process, and
-    no worker imports torch anew beside it)."""
+    per core, and no more than there are tasks (the session's own process
+    mostly waits for them: it only loads each chain they compiled); on the
+    CPU none (the chains compile in the session's process, and no worker
+    imports torch anew beside it)."""
     if device.type != "cuda":
         return 0
-    return min(max((os.cpu_count() or 1) - 1, 1), n_tasks)
+    return min(os.cpu_count() or 1, n_tasks)
 
 
 class Session:
@@ -183,10 +236,12 @@ class Session:
     def run(self, plan: Plan, force: bool | None = None) -> ResultSet:
         """Execute a plan incrementally; returns per-probe outcomes.
 
-        Probes are prepared and timed one at a time. The rows of
-        every measured or failed probe are journal-appended to the DB path
-        at once, so interrupting a sweep loses at most the probe in flight;
-        a completed run compacts the journal into the main DB file.
+        Every pending probe is prepared first (:meth:`_prepare_all`: its
+        O3 chains warmed in compile workers, then loaded here as soon as
+        they land), then each is timed in plan order. The rows of every
+        measured or failed probe are journal-appended to the DB path at
+        once, so interrupting a sweep loses at most the probe in flight; a
+        completed run compacts the journal into the main DB file.
         """
         force = self.force if force is None else force
         plan = plan.dedupe()
@@ -203,11 +258,9 @@ class Session:
                 pending.append((i, probe))
         stage_ns = {"warm": 0, "compile": 0, "time": 0, "flush": 0}
         if pending:
-            t0 = time.perf_counter_ns()
-            self._warm_compiles([p for _, p in pending], ctx)
-            stage_ns["warm"] += time.perf_counter_ns() - t0
+            prepared = self._prepare_all(pending, ctx, stage_ns)
             for i, probe in pending:
-                self._run_probe(i, probe, ctx, results, stage_ns)
+                self._run_probe(i, probe, ctx, prepared[i], results, stage_ns)
         if self.db.path:
             t0 = time.perf_counter_ns()
             self.db.save()  # compact the journal into one atomic write
@@ -215,38 +268,79 @@ class Session:
         return ResultSet(results=[results[i] for i in range(len(probes))],
                          db=self.db, stage_ns=stage_ns)
 
-    def _warm_compiles(self, probes: list[Probe], ctx: ProbeContext) -> None:
-        """Run the probes' warm tasks in spawned worker processes
-        (:func:`compile_workers_for`) and wait for all of them. A task that fails only costs its
-        cache entry: prepare compiles (or fails and records) the same chain
-        in this process afterwards."""
-        tasks = [t for p in probes for t in p.warm_tasks(ctx)]
-        workers = compile_workers_for(self.device, len(tasks))
-        if workers < 1:
-            return
-        t0 = time.perf_counter()
-        with concurrent.futures.ProcessPoolExecutor(
-                max_workers=workers,
-                mp_context=multiprocessing.get_context("spawn")) as pool:
-            futures = {pool.submit(fn, *args): args for fn, args in tasks}
-            for fut in concurrent.futures.as_completed(futures):
-                try:
-                    logger.debug("warmed %s in %.1f s", futures[fut], fut.result())
-                except Exception as e:  # noqa: BLE001 - advisory stage, see docstring
-                    logger.warning("compile-ahead of %s failed in a worker: %s: %s",
-                                   futures[fut], type(e).__name__, e)
-        logger.info("compile-ahead: %d chains in %d worker processes in %.1f s",
-                    len(tasks), workers, time.perf_counter() - t0)
+    def _prepare_all(self, pending: list[tuple[int, Probe]], ctx: ProbeContext,
+                     stage_ns: dict) -> dict[int, tuple]:
+        """``{i: (prepared, exception)}`` for every pending probe.
 
-    def _run_probe(self, i, probe, ctx, results, stage_ns) -> None:
-        """Prepare and time one probe; record the outcome and flush it."""
-        t0 = time.perf_counter_ns()
-        prepared, exc = None, None
+        The probes' warm tasks run in the open :class:`CompilePool`, or in
+        :func:`compile_workers_for` processes started for this run and shut
+        down before any timing. While they compile, this process prepares
+        each probe whose tasks have all landed (its chains then load from
+        Inductor's cache), and the probes without tasks first. A task that
+        fails only costs its cache entry: prepare compiles (or fails and
+        records) the same chain in this process.
+        """
+        t0 = time.perf_counter()
+        tasks = warm_tasks([p for _, p in pending], self.device)
+        workers = (0 if not tasks or CompilePool.current is not None
+                   else compile_workers_for(self.device, len(tasks)))
+        own = CompilePool(workers) if workers else None
+        pool = CompilePool.current or own
+        waiting: dict[int, list] = {}
+        if pool is not None and tasks:
+            pool.submit(tasks)  # in this order; a probe's own submit below finds them
+            waiting = {i: fs for i, p in pending if (fs := pool.submit(p.warm_tasks(self.device)))}
+        by_index, prepared = dict(pending), {}
         try:
-            prepared = probe.prepare(ctx)
-        except Exception as e:  # noqa: BLE001 - structured failure below
-            exc = e
-        stage_ns["compile"] += time.perf_counter_ns() - t0
+            for i, probe in pending:
+                if i not in waiting:
+                    prepared[i] = self._prepare(probe, ctx, stage_ns)
+            while waiting:
+                landed = [i for i, fs in waiting.items() if all(f.done() for f in fs)]
+                if not landed:
+                    t1 = time.perf_counter_ns()
+                    concurrent.futures.wait([f for fs in waiting.values() for f in fs],
+                                            return_when=concurrent.futures.FIRST_COMPLETED)
+                    stage_ns["warm"] += time.perf_counter_ns() - t1
+                    continue
+                for i in landed:
+                    for fut in waiting.pop(i):
+                        self._log_warm(by_index[i], fut)
+                    prepared[i] = self._prepare(by_index[i], ctx, stage_ns)
+        finally:
+            if own is not None:
+                own.close()
+        if tasks and pool is not None:
+            logger.info("compile-ahead: %d chains in %d worker processes; all probes "
+                        "prepared in %.1f s", len(tasks), pool.workers,
+                        time.perf_counter() - t0)
+        return prepared
+
+    @staticmethod
+    def _log_warm(probe: Probe, fut: concurrent.futures.Future) -> None:
+        try:
+            result = fut.result()
+            logger.debug("warmed %s@%s in %.1f s: %s", probe.op, probe.opt_level,
+                         result["s"], result["phases"])
+        except Exception as e:  # noqa: BLE001 - advisory stage, see _prepare_all
+            logger.warning("compile-ahead of %s@%s failed in a worker: %s: %s",
+                           probe.op, probe.opt_level, type(e).__name__, e)
+
+    @staticmethod
+    def _prepare(probe: Probe, ctx: ProbeContext, stage_ns: dict) -> tuple:
+        """(what ``probe.prepare`` built, None), or (None, the exception)."""
+        t0 = time.perf_counter_ns()
+        try:
+            return probe.prepare(ctx), None
+        except Exception as e:  # noqa: BLE001 - recorded as a failure when timed
+            return None, e
+        finally:
+            stage_ns["compile"] += time.perf_counter_ns() - t0
+
+    def _run_probe(self, i, probe, ctx, prepared, results, stage_ns) -> None:
+        """Time one prepared probe (``prepared`` is ``(what prepare built,
+        its exception)``); record the outcome and flush it."""
+        prepared, exc = prepared
         if exc is None:
             t0 = time.perf_counter_ns()
             try:

@@ -51,12 +51,57 @@ def retry_lens_for(spec: OpSpec, n1: int, n2: int) -> tuple[int, int]:
     return (n1, widened) if widened > n2 else (n1, n2)
 
 
-def compile_chain(spec: OpSpec, n: int, opt_level: str) -> Callable[..., Any]:
-    """One chain callable of length ``n`` at ``opt_level``.
+# Inductor options of the O3 chains of half-precision rows. By default
+# Inductor computes a fused chain of bfloat16 or float16 ops in float32 and
+# rounds once, at the store: ``x <- x + 1e-3`` from 1.0 gives 1.0625 after
+# 64 steps in bfloat16, where eager and jax.jit round every step and stay at
+# 1.0. Two options keep a rounding after every op. On the card,
+# ``triton.codegen_upcast_to_fp32=False`` has Triton compute in the row's
+# dtype: one correctly rounded half op equals eager's float32 op rounded to
+# the half type (float32 holds more than 2p + 2 bits of either's p). A
+# multiply-add step is the exception: LLVM contracts it into one HFMA2,
+# which rounds once where eager rounds the product too, so the fma rows
+# take ``emulate_precision_casts``, which keeps a cast after every op (and
+# doubles the compile of a 512-op chain, PERF.md section 5). The CPU's code
+# generator ignores the first option, so on the CPU every half row takes
+# the second. No other row's kernel changes.
+HALF_DTYPES = ("bfloat16", "float16")
+HALF_O3_OPTIONS = {"triton.codegen_upcast_to_fp32": False}
+CAST_O3_OPTIONS = {"emulate_precision_casts": True}
+# What one step of each half row's O3 chain runs on an H100 (sm_90a, PyTorch
+# 2.11), in the SASS of its Triton kernel; chip_smoke.py checks every
+# mnemonic named here. Without the options a bfloat16 add step ran FADD.
+HALF_O3_STEP_SASS = {
+    "add.bfloat16": "HADD2.BF16_V2", "sub.bfloat16": "HADD2.BF16_V2",
+    "mul.bfloat16": "HMUL2.BF16_V2", "fma.bfloat16": "HMUL2.BF16_V2+HADD2.BF16_V2",
+    "min.bfloat16": "HSETP2.BF16_V2+SEL+HADD2.BF16_V2",
+    "max.bfloat16": "HSETP2.BF16_V2+SEL+HADD2.BF16_V2",
+    "add.float16": "HADD2", "sub.float16": "HADD2", "mul.float16": "HMUL2",
+    "fma.float16": "HMUL2+HADD2", "min.float16": "HSETP2+SEL+HADD2",
+    "max.float16": "HSETP2+SEL+HADD2",
+}
+
+
+def inductor_options(spec: OpSpec, device: str | torch.device) -> dict[str, Any] | None:
+    """The Inductor options of ``spec``'s O3 chain on ``device`` beyond the
+    defaults (the session and the compile workers both compile through
+    :func:`compile_chain`, so they share one cache key)."""
+    if spec.dtype not in HALF_DTYPES:
+        return None
+    if torch.device(device).type == "cuda" and not spec.name.startswith("fma."):
+        return HALF_O3_OPTIONS
+    return CAST_O3_OPTIONS
+
+
+def compile_chain(spec: OpSpec, n: int, opt_level: str,
+                  device: str | torch.device = "cuda") -> Callable[..., Any]:
+    """One chain callable of length ``n`` at ``opt_level`` for tensors on
+    ``device``.
 
     Rows with an ``op_chain`` step launch the kernel once per step at O0 and
     once for the whole chain at O3; every other row is eager at O0 and
-    ``torch.compile``\\ d at O3 (compiled at its first call).
+    ``torch.compile``\\ d at O3 (compiled at its first call, with
+    :func:`inductor_options`).
     """
     if spec.kernel is not None:
         if opt_level == "O0":
@@ -65,7 +110,8 @@ def compile_chain(spec: OpSpec, n: int, opt_level: str) -> Callable[..., Any]:
             return kernel_chain_fn(spec, n)
         raise NotImplementedError(f"opt level {opt_level} is not ported yet")
     name = "chain_" + "".join(c if c.isalnum() else "_" for c in spec.name) + f"_{n}"
-    return compile_at_level(chain_fn(spec, n), opt_level, name=name)
+    return compile_at_level(chain_fn(spec, n), opt_level, name=name,
+                            options=inductor_options(spec, device))
 
 
 def _first_call(fn: Callable[..., Any], *args: Any) -> None:
@@ -93,7 +139,7 @@ class PreparedOp:
         length compiles lazily)."""
         if n not in self._fns:
             t0 = time.perf_counter()
-            fn = compile_chain(self.spec, n, self.opt_level)
+            fn = compile_chain(self.spec, n, self.opt_level, self.device)
             _first_call(fn, self.carry, *self.operands)
             logger.debug("compiled %s@%s n=%d in %.2f s", self.spec.name,
                          self.opt_level, n, time.perf_counter() - t0)
@@ -109,8 +155,15 @@ def prepare_op(spec: OpSpec, opt_level: str = "O3",
     n1, n2 = _CHAIN_LENS[opt_level]
     if spec.max_chain is not None:
         n1, n2 = min(n1, spec.max_chain // 3), min(n2, spec.max_chain)
+    # No widened retry for an Inductor chain at O3 on the card: events
+    # behind the lead resolve every chain that holds its n steps there, so a
+    # non-positive slope means the compiler folded the chain, which a 4x
+    # longer chain cannot change; and compiling that chain (1856 ops) takes
+    # minutes (88 s for `not` on an H100's host).
+    retry = ((n1, n2) if device.type == "cuda" and opt_level == "O3" and spec.kernel is None
+             else retry_lens_for(spec, n1, n2))
     prepared = PreparedOp(spec=spec, opt_level=opt_level, lens=(n1, n2),
-                          retry_lens=retry_lens_for(spec, n1, n2),
+                          retry_lens=retry,
                           reps=_REPS[opt_level], carry=spec.carry(device),
                           operands=spec.operand_tensors(device), device=device,
                           _fns={})
@@ -133,12 +186,29 @@ def measure_op(spec: OpSpec, opt_level: str, timer: Timer) -> float:
     return max(m.median_ns, 0.0)
 
 
-def warm_chain(name: str, opt_level: str, n: int, device: str) -> float:
+def compile_phases() -> dict[str, float]:
+    """Seconds this process has spent so far in each compile phase that
+    Dynamo and Inductor time (``torch._dynamo.utils.compilation_time_metrics``:
+    the Dynamo trace, the backend, Inductor's lowering, code generation,
+    the Triton compiles...), summed per phase name."""
+    from torch._dynamo.utils import compilation_time_metrics
+    return {k: float(sum(v)) for k, v in compilation_time_metrics.items()}
+
+
+def warm_chain(name: str, opt_level: str, n: int, device: str) -> dict[str, Any]:
     """Compile the chain of registry row ``name`` at length ``n`` in this
-    process and run it once; returns the seconds it took. A worker process
-    runs this to fill Inductor's on-disk cache ahead of the session."""
+    process and run it once. A worker process runs this to fill Inductor's
+    on-disk cache ahead of the session. Returns the seconds it took
+    (``"s"``), the seconds of each compile phase that moved
+    (``"phases"``, from :func:`compile_phases`) and the chain's result
+    (``"out"``, a Python number)."""
+    before = compile_phases()
     t0 = time.perf_counter()
     spec = chains.spec_by_name(name)
-    fn = compile_chain(spec, n, opt_level)
-    block(fn(spec.carry(device), *spec.operand_tensors(device)))
-    return time.perf_counter() - t0
+    fn = compile_chain(spec, n, opt_level, device)
+    out = fn(spec.carry(device), *spec.operand_tensors(device))
+    block(out)
+    seconds = time.perf_counter() - t0
+    phases = {k: v - before.get(k, 0.0) for k, v in compile_phases().items()}
+    return {"s": seconds, "phases": {k: v for k, v in phases.items() if v > 0.0},
+            "out": out.item()}

@@ -56,10 +56,10 @@ def stable_cache_keys() -> None:
     copyreg.pickle(torch.memory_format, _reduce_memory_format)
 
 
-def compile_at_level(fn: Callable[..., Any], level: str,
-                     name: str = "chain") -> Callable[..., Any]:
+def compile_at_level(fn: Callable[..., Any], level: str, name: str = "chain",
+                     options: dict[str, Any] | None = None) -> Callable[..., Any]:
     """Return ``fn`` at the requested optimization level. O3 compiles lazily,
-    at the first call."""
+    at the first call; ``options`` adds Inductor options to it."""
     if level == "O0":
         return fn  # eager dispatch
     if level == "O3":
@@ -71,7 +71,7 @@ def compile_at_level(fn: Callable[..., Any], level: str,
         # Inductor's cache key, so every compile of a chain passes the same.
         return torch.compile(_own_code(fn, name), backend="inductor",
                              fullgraph=True, dynamic=False,
-                             options={"compile_threads": 1})
+                             options={"compile_threads": 1, **(options or {})})
     if level == "O1":
         raise NotImplementedError("opt level O1 is not ported yet (see ROADMAP)")
     raise ValueError(f"unknown opt level {level!r}; choose from {OPT_LEVELS}")

@@ -19,13 +19,26 @@
 //                  over 32 steps, and for n a multiple of 32 no remainder
 //                  step runs.
 // Each step depends on the previous carry through a data-dependent
-// instruction (popc, clz, an add), so ptxas cannot fold the loop and no
-// `asm volatile` is needed.
-//   popc : __popc(x) ^ a        (uint32; POPC + LOP3)
-//   clz  : __clz(x) + a         (uint32; FLO + IADD3)
-//   add  : (x + a) ^ b          (int32, computed unsigned so overflow wraps
-//                                 as in the plain version; the in-kernel
-//                                 baseline that nets the rows' guard op)
+// instruction (popc, clz, a divide, a multiply, an add), so ptxas cannot
+// fold the loop and no `asm volatile` is needed.
+//   popc            : __popc(x) ^ a   (uint32; POPC + LOP3)
+//   clz             : __clz(x) + a    (uint32; FLO + IADD3)
+//   div.u.regular   : x / 8 + a       (uint32; the constant divisor lets
+//                                      ptxas shift instead of divide)
+//   div.u.irregular : x / 6 + a       (uint32; a constant, not a power of
+//                                      2: a high multiply by a magic number)
+//   div.u.runtime   : x / a + b       (uint32; the divisor a runtime
+//                                      operand: the divide sequence, whose
+//                                      reciprocal of a does not depend on x)
+//   rem.u           : x % a + b       (uint32; likewise)
+//   mul64hi         : (uint32)((uint64)x * a >> 32) | 1
+//                                     (the high word of the widening
+//                                      multiply; the | 1 keeps the chain
+//                                      off the fixed point 0)
+//   add             : (x + a) ^ b     (int32, computed unsigned so overflow
+//                                      wraps as in the plain version; the
+//                                      in-kernel baseline that nets the
+//                                      rows' guard op)
 //
 // Bound on this card: the chain's latency, n x (step + loop share) per element; the
 // bytes (carry, operands, out: 4 B each per element) and the operation count
@@ -47,6 +60,38 @@ struct Clz {
   static constexpr int kOperands = 1;
   __device__ __forceinline__ static T apply(T x, T a, T) {
     return static_cast<T>(__clz(static_cast<int>(x))) + a;
+  }
+};
+
+struct DivU8 {
+  using T = uint32_t;
+  static constexpr int kOperands = 1;
+  __device__ __forceinline__ static T apply(T x, T a, T) { return x / 8u + a; }
+};
+
+struct DivU6 {
+  using T = uint32_t;
+  static constexpr int kOperands = 1;
+  __device__ __forceinline__ static T apply(T x, T a, T) { return x / 6u + a; }
+};
+
+struct DivURuntime {
+  using T = uint32_t;
+  static constexpr int kOperands = 2;
+  __device__ __forceinline__ static T apply(T x, T a, T b) { return x / a + b; }
+};
+
+struct RemU {
+  using T = uint32_t;
+  static constexpr int kOperands = 2;
+  __device__ __forceinline__ static T apply(T x, T a, T b) { return x % a + b; }
+};
+
+struct Mul64Hi {
+  using T = uint32_t;
+  static constexpr int kOperands = 1;
+  __device__ __forceinline__ static T apply(T x, T a, T) {
+    return static_cast<T>((static_cast<uint64_t>(x) * a) >> 32) | 1u;
   }
 };
 
@@ -101,7 +146,10 @@ int launch(int unroll, const void* x, const void* a, const void* b, void* out,
 }
 
 // Step ids: the index of the step's name in repro_torch.kernels.opchain.STEPS.
-enum StepId : int { kAdd = 0, kPopc = 1, kClz = 2 };
+enum StepId : int {
+  kAdd = 0, kPopc = 1, kClz = 2, kDivU8 = 3, kDivU6 = 4, kDivURuntime = 5, kRemU = 6,
+  kMul64Hi = 7
+};
 
 }  // namespace
 
@@ -113,6 +161,11 @@ extern "C" int op_chain_launch(int step, int unroll, const void* x, const void* 
     case kAdd: return launch<AddXor>(unroll, x, a, b, out, numel, n, stream);
     case kPopc: return launch<Popc>(unroll, x, a, b, out, numel, n, stream);
     case kClz: return launch<Clz>(unroll, x, a, b, out, numel, n, stream);
+    case kDivU8: return launch<DivU8>(unroll, x, a, b, out, numel, n, stream);
+    case kDivU6: return launch<DivU6>(unroll, x, a, b, out, numel, n, stream);
+    case kDivURuntime: return launch<DivURuntime>(unroll, x, a, b, out, numel, n, stream);
+    case kRemU: return launch<RemU>(unroll, x, a, b, out, numel, n, stream);
+    case kMul64Hi: return launch<Mul64Hi>(unroll, x, a, b, out, numel, n, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

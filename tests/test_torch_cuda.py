@@ -23,7 +23,8 @@ import torch
 
 from repro_torch.api import Plan, Session
 from repro_torch.api.cli import main as cli_main
-from repro_torch.core import membench
+from repro_torch.core import measure, membench
+from repro_torch.core.chains import spec_by_name
 from repro_torch.core.timing import Timer, sandwich_slope, sm_clock_hz
 from repro_torch.kernels import opchain
 from repro_torch.kernels.alu_chain import OPS, alu_chain, alu_chain_plain, alu_chain_timed
@@ -95,6 +96,8 @@ def test_op_chain_kernel_bit_exact(dev, step, shape):
     dtype, n_ops, _ = opchain.STEPS[step]
     rng = np.random.RandomState(1)
     x, *ops = (torch.from_numpy(_draw(rng, dtype, shape)) for _ in range(1 + n_ops))
+    if step in opchain.DIVIDES:  # a divisor of 0 has no defined quotient
+        ops[0] = ops[0] | 1
     before = op_chain.launches
     lens = (0, 1, 45, 64, 512)  # 45: 32 steps in the loop, 13 in the remainder
     for unroll in opchain.UNROLLS:
@@ -105,6 +108,50 @@ def test_op_chain_kernel_bit_exact(dev, step, shape):
             assert torch.equal(got.cpu(), op_chain_plain(x, *ops, step=step, n=n)), \
                 (n, unroll)
     assert op_chain.launches == before + len(lens) * len(opchain.UNROLLS)
+
+
+@pytest.mark.parametrize("step", ["div.u.regular", "div.u.irregular", "div.u.runtime",
+                                  "rem.u", "mul64hi"])
+def test_op_chain_table2_steps_on_the_rows_inputs(dev, step):
+    """K2's uint32 divides and high multiply on their registry rows' own
+    carry and operands (mul64hi's product passes 2**63), one launch a call."""
+    spec = spec_by_name(step)
+    x, ops = spec.carry("cpu"), spec.operand_tensors("cpu")
+    for unroll in opchain.UNROLLS:
+        before = op_chain.launches
+        got = op_chain(x.to(dev), *(o.to(dev) for o in ops), step=step, n=512, unroll=unroll)
+        assert op_chain.launches == before + 1
+        assert torch.equal(got.cpu(), op_chain_plain(x, *ops, step=step, n=512)), unroll
+
+
+@pytest.mark.parametrize("name", ["add.bfloat16", "fma.bfloat16", "max.bfloat16",
+                                  "sub.float16", "mul.float16", "min.float16"])
+def test_half_row_o3_chain_equals_eager(dev, name):
+    """F3: a half-precision row's O3 chain rounds every step, as eager does
+    (the fma rows through casts, the others in their own dtype)."""
+    spec = spec_by_name(name)
+    args = (spec.carry(dev), *spec.operand_tensors(dev))
+    o3 = measure.compile_chain(spec, 64, "O3", dev)(*args)
+    eager = measure.compile_chain(spec, 64, "O0", dev)(*args)
+    assert o3.dtype == eager.dtype and o3.item() == eager.item()
+
+
+def test_table2_plan_records_every_probe_on_card(dev, tmp_path, monkeypatch):
+    """``--plan table2`` on the card, cut to a row of each category, K2's
+    five new rows and clock overhead, O3 chains of (8, 32) ops: a record
+    for every probe, each timed by events, and K2 launched."""
+    monkeypatch.setattr(measure, "_CHAIN_LENS", {"O0": (2, 10), "O3": (8, 32)})
+    ops = ("clock_overhead", "rem.s", "xor", "min.float32", "add.float64", "fma.float16",
+           "add.cc", "tanh", "bfe", "div.u.regular", "div.u.irregular", "div.u.runtime",
+           "rem.u", "mul64hi")
+    before = op_chain.launches
+    rc = cli_main(["characterize", "--plan", "table2", "--db", str(tmp_path / "db.json"),
+                   "--ops", ",".join(ops), "--reps", "5"])
+    blob = json.loads((tmp_path / "db.json").read_text())
+    assert rc == 0 and not blob.get("failures")
+    assert len(blob["records"]) == 2 * len(ops)
+    assert all("clock=events" in r["notes"] for r in blob["records"])
+    assert op_chain.launches > before
 
 
 @pytest.mark.parametrize("ws", [1 << 13, 1 << 17, 1 << 21])

@@ -106,7 +106,7 @@ def test_op_chain_scalar_carry_like_the_registry(step):
 def test_op_chain_rejects_bad_inputs():
     x, (a,) = from_numpy(_op_inputs("popc"), "cpu")
     with pytest.raises(ValueError, match="step must be one of"):
-        op_chain(x, a, step="mul64hi", n=1)
+        op_chain(x, a, step="mul128hi", n=1)
     with pytest.raises(ValueError, match="operand"):
         op_chain(x, a, a, step="popc", n=1)
     with pytest.raises(TypeError, match="uint32"):
