@@ -8,7 +8,9 @@ Run from the root of a checkout on a machine with one CUDA card and nvcc:
 Before anything else it starts one pool of compile worker processes and
 hands it every O3 chain of the quick plan and then those the table2 plan
 adds, each plan's longest first; they compile while the kernels build and
-are checked, and each plan's session waits only for its own chains.
+are checked, and each plan's session waits only for its own chains. Every
+record made on the card must count ``cycles`` on the SM clock its notes
+name (``cycles_at=sm_clock64@<MHz>``).
 
 Phases, each of which must pass:
 
@@ -27,14 +29,23 @@ Phases, each of which must pass:
    no MUFU.RCP, IMAD.HI or IMAD.WIDE; of div.u.irregular a wide or high
    multiply and no MUFU.RCP; div.u.runtime and rem.u hold the divide
    sequence's MUFU.RCP; a step of mul64hi a wide or high multiply), and a
-   step of each holds what its row's notes name; and ptxas must report 0
+   step of each holds what its row's notes name; K2's timed form, for each
+   of the 58 in-kernel rows at n 8 and 64: the clock reads bracket the
+   chain (nothing that grows with n before the first read, no branch
+   between the reads but a step's own), and what a step runs, the SASS
+   between the reads at n 64 less that at n 8 over 56, printed, the rows
+   under one instruction a step named as folded; and ptxas must report 0
    spill bytes for each instance of K5 float32 and of K7;
 2. hold each kernel against its plain PyTorch version on the card: K1-K3 at
    the quick plan's shapes and one larger shape (alu_chain within rtol
    1e-5, in both its forms, the timed one's cycles all positive; op_chain
-   and chase bit-exact, op_chain in every step, the table2 rows' uint32
-   divides and high multiply included, at unroll 1 and 32, and on each
-   registry row's own inputs); K4-K7 at the fused plan's unit
+   and chase bit-exact, op_chain in every integer step, the table2 rows'
+   uint32 divides and high multiply included, at unroll 1 and 32 and in
+   the timed form, on random inputs and on each registry row's own inputs;
+   and each of the 58 in-kernel rows on its tile and inputs in the timed
+   form at n 8 and 64 (every thread's cycles positive) and in the loop
+   form at n 37, bit-exact but for the transcendental and reciprocal rows,
+   within 2 ulps); K4-K7 at the fused plan's unit
    workloads and at the widths of Jamba-v0.1 52B (d_model 4096, 32 heads,
    8 KV heads, head dim 128, Mamba Dm 8192, N 16, chunk 64), every element
    within ``tol * (|want| + rms(want's row))``, tol 2^-7 in bfloat16 (one
@@ -69,12 +80,20 @@ Phases, each of which must pass:
    the compile workers), and a step of it must run what its notes name.
    It prints each O3 chain's compile seconds by phase, and a line per row:
    ns a step at O0 and O3, MAD, net, what an O3 step runs, and its notes;
-5. the same for ``characterize --plan fused``: it must launch K4-K7 and
+5. run ``characterize --plan inkernel --table`` through the CLI on
+   table2's DB, the launch counts set to 0 just before and read just after:
+   every inkernel.<row> probe must end with a record timed by K2's SM clock
+   sandwich (notes ``clock=sm_clock64@<MHz>``), but a row whose timed SASS
+   is folded may end as a NoisySlopeError; every dispatch twin that table2
+   recorded must be a cache hit; K2 must be launched and the pairing
+   table printed. It prints the in-kernel Table II: each row's ns and SM
+   cycles a step beside its dispatch twin, and what a step runs;
+6. the same for ``characterize --plan fused``: it must launch K4-K7 and
    measure the flash_attention, flash_decode and mamba_scan rows; the
    rmsnorm row may end as a NoisySlopeError failure (its row blocks run in
    parallel, so its slope is near the clock's resolution), and the script
    prints which;
-6. time each kernel, its plain version, its bound (the larger of bytes
+7. time each kernel, its plain version, its bound (the larger of bytes
    and operations; K5 float32's operations at the least of float32 FMAs,
    3xTF32 and 3xBF16 on the tensor cores, the choice printed; K7's at its
    float32 operations, its exponentials on the SFU alone printed beside
@@ -89,10 +108,11 @@ Phases, each of which must pass:
    of K6's split and combine passes from torch.profiler); count
    non-positive slopes of the host clock, of CUDA events and of the SM clock sandwich
    over repeated trials (the sandwich, which times the quick plan's
-   kernel.alu_chain.fma row, must have none), print the calibrated SM
+   kernel.alu_chain.fma row and the inkernel plan's rows, must have none,
+   for K1's fma chain and for K2's inkernel.add), print the calibrated SM
    clock, and time op_chain's loop: each step's time with 1 and with 32
    steps to an iteration;
-7. print the ``{"kernels": [...]}`` line (each kernel with the design each
+8. print the ``{"kernels": [...]}`` line (each kernel with the design each
    dtype runs), the card's name and power limit, and, last, ``{"ok": true,
    "device": {...}}``.
 
@@ -101,7 +121,10 @@ repository's sources are missing.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import importlib
+import io
 import json
 import math
 import re
@@ -133,11 +156,100 @@ ALU_RTOL = 1e-5
 # float32: 2^-13, below TF32's 2^-11, so a product taken in TF32 fails it.
 ROW_TOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 2.0 ** -13}
 QUICK_KERNELS = ("alu_chain", "op_chain", "chase")
+# K2's in-kernel rows against their plain versions: bit-exact, but for the
+# rows whose step is a transcendental or reciprocal function, within ULPS
+# units in the last place (neither side rounds those correctly; each step
+# contracts an error, so it does not grow with n)
+ULPS = 2
+ULP_ROWS = ("sin", "cos", "lg2", "ex2", "tanh", "rsqrt", "rcp")
+
+
+def ulps(got: torch.Tensor, want: torch.Tensor) -> int:
+    """The largest distance between got and want in units in the last place
+    (0 for equal integers; any difference of integers counts)."""
+    if not want.dtype.is_floating_point:
+        return 0 if torch.equal(got, want) else 2 ** 31
+    ints = {2: torch.int16, 4: torch.int32}[want.element_size()]
+    sign = {2: 0x7FFF, 4: 0x7FFFFFFF}[want.element_size()]
+
+    def ordered(t):  # the float's place on the number line, as an integer
+        i = t.contiguous().view(ints).long()
+        return torch.where(i < 0, -(i & sign), i)
+
+    return int((ordered(got) - ordered(want)).abs().max())
+
+
+def same_bits_or_both_nan(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Bit for bit (the sign of a zero counts); a NaN matches any NaN."""
+    ints = {2: torch.int16, 4: torch.int32}[want.element_size()]
+    both_nan = got.isnan() & want.isnan()
+    return bool((both_nan | (got.view(ints) == want.view(ints))).all())
+
+
+def check_float_specials(dev: torch.device, rng: np.random.RandomState) -> None:
+    """K2's float rows that are held bit for bit (all but ``ULP_ROWS``), on
+    random inputs with NaN, +-0 and +-inf in a quarter of the elements, in
+    both forms at n 1, 8, 37, 64, against op_chain_plain on the card: a NaN
+    goes through every step, min and max too (as jnp.minimum does; fminf
+    would drop it). fma.float32's a is a power of two or a special: the
+    kernel rounds x*a + b once (FFMA), the registry's step twice, and the
+    two agree where the product is exact. Then one step of each min and max
+    row where fminf-style instructions part from jnp.minimum and
+    jnp.maximum: NaN for a NaN operand, and -0 below +0 in either order."""
+    from repro_torch import inkernel
+    from repro_torch.kernels.opchain import (STEPS, UNROLLS, op_chain, op_chain_plain,
+                                             op_chain_timed)
+
+    specials = (float("nan"), 0.0, -0.0, float("inf"), float("-inf"))
+    rows = [s for s, (dtype, _, _) in STEPS.items()
+            if dtype.is_floating_point and s not in ULP_ROWS]
+    for step in rows:
+        dtype, n_ops, _ = STEPS[step]
+        shape = inkernel.default_tile(str(dtype).removeprefix("torch."))
+
+        def draw():
+            vals = rng.standard_normal(shape) * 4.0
+            special = rng.random_sample(shape) < 0.25
+            vals[special] = rng.choice(specials, int(special.sum()))
+            return torch.from_numpy(vals.astype(np.float32)).to(dtype).to(dev)
+
+        x, *ops = (draw() for _ in range(1 + n_ops))
+        if step == "fma.float32":
+            ops[0] = torch.from_numpy(rng.choice((0.5, 2.0, -0.5, -2.0) + specials, shape)
+                                      .astype(np.float32)).to(dev)
+        for n in (1, 8, 37, 64):
+            want = op_chain_plain(x, *ops, step=step, n=n)
+            got = {f"unroll={u}": op_chain(x, *ops, step=step, n=n, unroll=u) for u in UNROLLS}
+            got["timed"] = op_chain_timed(x, *ops, step=step, n=n)[0]
+            for form, g in got.items():
+                if not same_bits_or_both_nan(g, want):
+                    fail(f"op_chain {step} {form} n={n}: differs from the plain version on "
+                         "inputs with NaN, +-0 and +-inf")
+    for dt in ("float32", "bfloat16", "float16"):
+        t = lambda *v: torch.tensor(v, dtype=getattr(torch, dt), device=dev)  # noqa: E731
+        nan = float("nan")
+        x, a = t(nan, 1.0, nan, -0.0, 0.0, 2.0), t(1.0, nan, nan, 0.0, -0.0, 3.0)
+        # b is -0 for min and +0 for max, so the step's add keeps a zero's sign
+        for op, b, want in (("min", -0.0, t(nan, nan, nan, -0.0, -0.0, 2.0)),
+                            ("max", 0.0, t(nan, nan, nan, 0.0, 0.0, 3.0))):
+            b = torch.full_like(x, b)
+            got = {f"unroll={u}": op_chain(x, a, b, step=f"{op}.{dt}", n=1, unroll=u)
+                   for u in UNROLLS}
+            got["timed n=8"] = op_chain_timed(x, a, b, step=f"{op}.{dt}", n=8)[0]
+            for form, g in got.items():
+                if not same_bits_or_both_nan(g, want):
+                    fail(f"op_chain {op}.{dt} {form}: {g.tolist()} where jnp.{op}imum "
+                         f"gives {want.tolist()}")
+    print(f"K2 op_chain: the {len(rows)} float rows held bit for bit, on inputs with NaN, "
+          "+-0 and +-inf, both forms, n (1, 8, 37, 64), equal the plain version (NaN for "
+          "NaN); min and max carry NaN and order -0 below +0, as jnp.minimum/maximum")
 
 
 def designs(name: str) -> dict[str, str]:
-    """The design each dtype of kernel ``name`` runs, from its module's DESIGNS."""
-    mod = importlib.import_module(f"repro_torch.kernels.{name.replace('op_chain', 'opchain')}")
+    """The design each dtype of kernel ``name`` (a library of
+    ``_build.KERNELS``) runs, from its wrapper module's DESIGNS."""
+    module = {"op_chain": "opchain", "op_chain_timed": "opchain"}.get(name, name)
+    mod = importlib.import_module(f"repro_torch.kernels.{module}")
     return {str(k).removeprefix("torch."): v for k, v in mod.DESIGNS.items()}
 
 
@@ -169,7 +281,9 @@ def check_kernels(dev: torch.device) -> dict[str, float]:
     from repro_torch.kernels.alu_chain import OPS, alu_chain, alu_chain_plain, alu_chain_timed
     from repro_torch.kernels.chase import chase, chase_plain
     from repro_torch.core.chains import default_registry, spec_by_name
-    from repro_torch.kernels.opchain import DIVIDES, STEPS, UNROLLS, op_chain, op_chain_plain
+    from repro_torch import inkernel
+    from repro_torch.kernels.opchain import (DIVIDES, STEPS, TIMED_LENS, UNROLLS, op_chain,
+                                             op_chain_plain, op_chain_timed)
 
     chain_names = {s.name for s in default_registry()}
 
@@ -199,14 +313,19 @@ def check_kernels(dev: torch.device) -> dict[str, float]:
           f"(1024, 1024) agree, max abs err {err['alu_chain']:.3g} (rtol {ALU_RTOL}); "
           "every thread's cycles positive")
 
-    for step, (dtype, n_ops, _) in STEPS.items():
+    int_steps = [step for step, (dtype, _, _) in STEPS.items() if not dtype.is_floating_point]
+    for step in int_steps:
+        dtype, n_ops, _ = STEPS[step]
         np_dtype = np.int32 if dtype == torch.int32 else np.uint32
         for shape in ((), (8, 128), (256, 1024)):
-            draw = lambda low=0: torch.from_numpy(np.asarray(  # noqa: E731
-                rng.randint(low, 2 ** 32, shape, dtype=np.uint64).astype(np_dtype))).to(dev)
-            # a divide's divisor is nonzero (x / 0 has no defined result)
+            draw = lambda low=0, high=2 ** 32: torch.from_numpy(np.asarray(  # noqa: E731
+                rng.randint(low, high, shape, dtype=np.uint64).astype(np_dtype))).to(dev)
+            # a divide's divisor is nonzero (x / 0 has no defined result), and
+            # positive where signed (nor has INT_MIN / -1)
+            divisor = (1, 2 ** 31 if dtype == torch.int32 else 2 ** 32)
             x = draw()
-            ops = tuple(draw(1 if i == 0 and step in DIVIDES else 0) for i in range(n_ops))
+            ops = tuple(draw(*divisor) if i == 0 and step in DIVIDES else draw()
+                        for i in range(n_ops))
             for n in (1, 45, 64, 512):
                 want = op_chain_plain(x, *ops, step=step, n=n).cpu()
                 for unroll in UNROLLS:
@@ -214,6 +333,11 @@ def check_kernels(dev: torch.device) -> dict[str, float]:
                     if not torch.equal(got, want):
                         fail(f"op_chain {step} n={n} unroll={unroll} {shape}: "
                              "differs from the plain version")
+                # and the timed form: straight-line at 8 and 64, else a loop
+                got, cycles = op_chain_timed(x, *ops, step=step, n=n)
+                if not (torch.equal(got.cpu(), want) and bool((cycles > 0).all())):
+                    fail(f"op_chain_timed {step} n={n} {shape}: differs from the plain "
+                         "version, or a thread's cycles are not positive")
         if step in chain_names:  # and the registry row's own carry and operands
             spec = spec_by_name(step)
             x, ops = spec.carry(dev), spec.operand_tensors(dev)
@@ -222,9 +346,44 @@ def check_kernels(dev: torch.device) -> dict[str, float]:
                 if not torch.equal(op_chain(x, *ops, step=step, n=512, unroll=unroll).cpu(), want):
                     fail(f"op_chain {step} on the row's inputs, n=512 unroll={unroll}: "
                          "differs from the plain version")
-    print(f"K2 op_chain: steps {tuple(STEPS)} x n in (1, 45, 64, 512) x unroll "
-          f"{UNROLLS} x (), (8, 128), (256, 1024), and each registry row's own "
-          "inputs at n 512, bit-exact")
+    print(f"K2 op_chain: the {len(int_steps)} integer steps x n in (1, 45, 64, 512) x "
+          f"unroll {UNROLLS} and the timed form x (), (8, 128), (256, 1024) on random "
+          "inputs, and each registry row's own inputs at n 512, bit-exact")
+
+    # every in-kernel row on its own tile and inputs, as the inkernel plan runs
+    # it: the timed form at its straight-line lengths, the loop form at an odd n
+    ulps_seen = {}
+    for spec in inkernel.supported_specs():
+        carry, ops = inkernel.tiles(spec, device=dev)
+        limit = ULPS if spec.name in ULP_ROWS else 0
+        runs = [(f"timed n={n}", n, lambda n: op_chain_timed(carry, *ops, step=spec.name, n=n))
+                for n in TIMED_LENS]
+        runs += [(f"loop n=37 unroll={u}", 37,
+                  lambda n, u=u: (op_chain(carry, *ops, step=spec.name, n=n, unroll=u), None))
+                 for u in UNROLLS]
+        for label, n, run in runs:
+            got, cycles = run(n)
+            want = op_chain_plain(carry, *ops, step=spec.name, n=n)
+            torch.cuda.synchronize()
+            if got.dtype != want.dtype or got.shape != want.shape:
+                fail(f"op_chain {spec.name} {label}: {got.dtype} {tuple(got.shape)}, plain "
+                     f"{want.dtype} {tuple(want.shape)}")
+            off = ulps(got, want)
+            if off > limit:
+                fail(f"op_chain {spec.name} {label}: {off} ulps from the plain version "
+                     f"(limit {limit})")
+            if cycles is not None and not bool((cycles > 0).all()):
+                fail(f"op_chain_timed {spec.name} n={n}: a thread's cycles are not positive "
+                     f"(min {int(cycles.min())})")
+            ulps_seen[spec.name] = max(ulps_seen.get(spec.name, 0), off)
+            err["op_chain"] = max(err["op_chain"],
+                                  float((got.double() - want.double()).abs().max()))
+    print(f"K2 op_chain: the {len(ulps_seen)} in-kernel rows on their tiles and inputs, the "
+          f"timed form at n {TIMED_LENS} (every thread's cycles positive) and the loop form at "
+          f"n 37: bit-exact but for {ULP_ROWS} (limit {ULPS} ulps); ulps off: "
+          + ", ".join(f"{k} {v}" for k, v in ulps_seen.items() if v))
+
+    check_float_specials(dev, rng)
 
     for ws in (1 << 13, 1 << 17, 1 << 21, 1 << 25):
         ring, start = build_ring(ws, device=dev)
@@ -584,12 +743,11 @@ def run_quick(dev: torch.device, db_path: str) -> dict[str, int]:
     from repro_torch.api.cli import main as cli_main
     from repro_torch.api.plan import named_plan
     from repro_torch.core.latency_db import LatencyDB, current_environment
-    from repro_torch.kernels.ops import KERNELS
 
-    for k in KERNELS:
+    for k in counted():
         k.launches = 0
     rc = cli_main(["characterize", "--plan", "quick", "--db", db_path, "--table"])
-    launches = {k.__name__: k.launches for k in KERNELS}
+    launches = {k.__name__: k.launches for k in counted()}
     if rc != 0:
         fail(f"characterize --plan quick exited {rc}")
     db = LatencyDB(db_path)
@@ -605,6 +763,7 @@ def run_quick(dev: torch.device, db_path: str) -> dict[str, int]:
         if not (math.isfinite(rec.latency_ns) and rec.latency_ns >= 0
                 and rec.n_samples > 0 and clock in rec.notes):
             fail(f"bad record {rec}")
+        check_cycles(rec)
         if probe.op.startswith("kernel."):
             print(f"quick: {probe.op} {rec.latency_ns:.3f} ns, {rec.cycles:.2f} cycles "
                   f"(MAD {rec.mad_ns:.3f} ns; notes {rec.notes})")
@@ -722,12 +881,11 @@ def run_table2(dev: torch.device, db_path: str, pool) -> dict[str, int]:
     from repro_torch.api.plan import named_plan
     from repro_torch.core import chains, measure
     from repro_torch.core.latency_db import LatencyDB, current_environment
-    from repro_torch.kernels.ops import KERNELS
 
-    for k in KERNELS:
+    for k in counted():
         k.launches = 0
     rc = cli_main(["characterize", "--plan", "table2", "--db", db_path, "--table"])
-    launches = {k.__name__: k.launches for k in KERNELS}
+    launches = {k.__name__: k.launches for k in counted()}
     db = LatencyDB(db_path)
     env = current_environment(dev)
     plan = named_plan("table2")
@@ -778,6 +936,7 @@ def run_table2(dev: torch.device, db_path: str, pool) -> dict[str, int]:
         if not (math.isfinite(rec.latency_ns) and rec.latency_ns >= 0 and rec.n_samples > 0
                 and "clock=events" in rec.notes):
             fail(f"bad record {rec}")
+        check_cycles(rec)
     for spec in registry:
         cells = []
         for level in ("O0", "O3"):
@@ -806,20 +965,128 @@ def run_table2(dev: torch.device, db_path: str, pool) -> dict[str, int]:
     return launches
 
 
+def counted() -> tuple:
+    """The wrappers whose launches a run counts: the seven kernels'
+    (``ops.KERNELS``), and K2's timed form's own count beside K2's, which
+    counts both of its forms."""
+    from repro_torch.kernels.ops import KERNELS
+    from repro_torch.kernels.opchain import op_chain_timed
+    return KERNELS + (op_chain_timed,)
+
+
+def check_cycles(rec) -> None:
+    """A record made on the card counts ``cycles`` on the SM clock its notes
+    name (``cycles_at=sm_clock64@<MHz>``): cycles == ns x that clock."""
+    m = re.search(r"cycles_at=sm_clock64@(\d+)", rec.notes)
+    if not m:
+        fail(f"{rec.op}@{rec.opt_level}: its notes name no SM clock for cycles: {rec.notes}")
+    want = rec.latency_ns * int(m[1]) * 1e6 / 1e9
+    if not math.isclose(rec.cycles, want, rel_tol=1e-3, abs_tol=1e-6):
+        fail(f"{rec.op}@{rec.opt_level}: {rec.cycles} cycles, but {rec.latency_ns} ns at "
+             f"{m[1]} MHz is {want}")
+
+
+def run_inkernel(dev: torch.device, db_path: str,
+                 timed_sass: dict[str, tuple[float, dict]]) -> dict[str, int]:
+    """Phase 5: the inkernel plan through the CLI on table2's DB, with its
+    ``--table``; returns each kernel's launches during that run. Every
+    ``inkernel.<row>`` probe must end with a record timed by K2's SM clock
+    sandwich, except a row whose timed SASS shows it folded (under one
+    instruction a step), which may end as a NoisySlopeError; every
+    dispatch twin that table2 recorded must be a cache hit (a twin table2
+    could not record, a folded O3 chain, runs again and may fail again);
+    K2 must be launched; the pairing table must be printed. Prints the
+    in-kernel Table II: each row's ns and SM cycles a step beside its
+    dispatch twin."""
+    from repro_torch.api.cli import main as cli_main
+    from repro_torch.api.plan import named_plan
+    from repro_torch.core.latency_db import LatencyDB, current_environment
+
+    env = current_environment(dev)
+    plan = named_plan("inkernel")
+    twins = [p for p in plan if not p.op.startswith("inkernel.")]
+    before = LatencyDB(db_path)
+    recorded = {p.op: before.get(p.key(env)).measured_at for p in twins
+                if p.key(env) in before}
+    for k in counted():
+        k.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["characterize", "--plan", "inkernel", "--db", db_path, "--table"])
+    launches = {k.__name__: k.launches for k in counted()}
+    out = buf.getvalue()
+    print(out, end="")
+    db = LatencyDB(db_path)
+    failures = {(f.op, f.opt_level): f for f in db.failures()}
+    failed = []
+    for probe in plan:
+        rec = db.get(probe.key(env))
+        if rec is None:
+            f = failures.get((probe.op, probe.opt_level))
+            failed.append(probe.op)
+            row = probe.op.removeprefix("inkernel.")
+            if probe.op.startswith("inkernel.") and timed_sass[row][0] < 1.0 \
+                    and f is not None and f.error_type == "NoisySlopeError":
+                print(f"inkernel: {probe.op} failed ({f.error_type}: {f.message}); its timed "
+                      f"chain is folded: {timed_sass[row][0]:.3f} SASS instructions a step")
+                continue
+            if probe in twins and probe.op not in recorded:
+                print(f"inkernel: its twin {probe.op}@O3 failed again "
+                      f"({f.error_type if f else None}); table2 could not record it either")
+                continue
+            fail(f"no record for {probe.op}@{probe.opt_level}: {f}")
+        check_cycles(rec)
+        if probe in twins:
+            if probe.op in recorded and rec.measured_at != recorded[probe.op]:
+                fail(f"{probe.op}@O3: measured again, not a cache hit of table2's record")
+            continue
+        if not (math.isfinite(rec.latency_ns) and rec.latency_ns >= 0 and rec.n_samples > 0
+                and "clock=sm_clock64@" in rec.notes):
+            fail(f"bad record {rec}")
+    m = re.search(r"(\d+) measured, (\d+) cached, (\d+) failed", out)
+    if not m or int(m[2]) != len(recorded) or int(m[3]) != len(failed):
+        fail(f"inkernel: expected {len(recorded)} cached and {len(failed)} failed, got "
+             f"{m[0] if m else out[-300:]}")
+    if rc != (1 if failed else 0):
+        fail(f"characterize --plan inkernel exited {rc} with {len(failed)} failures")
+    if "== host vs in-kernel" not in out:
+        fail("characterize --plan inkernel --table printed no pairing table")
+    for spec in [p.spec for p in plan if p.op.startswith("inkernel.")]:
+        ik = db.get((env["device_kind"], env["backend"], env["jax_version"], "O3",
+                     f"inkernel.{spec.name}", spec.dtype))
+        d = db.get((env["device_kind"], env["backend"], env["jax_version"], "O3",
+                    spec.name, spec.dtype))
+        per, hist = timed_sass[spec.name]
+        cells = ("failed" if ik is None else
+                 f"{ik.latency_ns:.3f} ns = {ik.cycles:.2f} cycles a step (MAD "
+                 f"{ik.mad_ns:.3f} ns, net {ik.net_latency_ns:.3f} ns)")
+        twin = "failed" if d is None else f"{d.latency_ns:.2f} ns ({d.cycles:.1f} cycles)"
+        ratio = (f"{ik.latency_ns / d.latency_ns:.3f}" if ik is not None and d is not None
+                 and d.latency_ns > 0 else "-")
+        print(f"inkernel: {spec.category} {spec.name} {spec.dtype}: in-kernel {cells}; "
+              f"dispatch O3 {twin}; in-kernel/dispatch {ratio}; a step runs {per:.2f} SASS: "
+              + ", ".join(f"{k} {c:g}" for k, c in list(hist.items())[:4]))
+    print(f"inkernel: {len(plan) - len(failed)} of the {len(plan)} probes recorded, "
+          f"{len(recorded)} dispatch twins cached from table2, {len(failed)} failed "
+          f"({', '.join(failed) or 'none'}); launches {launches}")
+    if launches["op_chain"] == 0:
+        fail("kernel op_chain was not launched by the inkernel run")
+    return launches
+
+
 def run_fused(dev: torch.device) -> dict[str, int]:
     """Phase 4: the fused plan through the CLI; returns each kernel's
     launches during that run."""
     from repro_torch.api.cli import main as cli_main
     from repro_torch.api.plan import named_plan
     from repro_torch.core.latency_db import LatencyDB, current_environment
-    from repro_torch.kernels.ops import KERNELS
 
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         db_path = str(Path(tmp) / "fused_db.json")
-        for k in KERNELS:
+        for k in counted():
             k.launches = 0
         rc = cli_main(["characterize", "--plan", "fused", "--db", db_path, "--table"])
-        launches = {k.__name__: k.launches for k in KERNELS}
+        launches = {k.__name__: k.launches for k in counted()}
         db = LatencyDB(db_path)
     env = current_environment(dev)
     failures = {f.op: f for f in db.failures()}
@@ -835,6 +1102,7 @@ def run_fused(dev: torch.device) -> dict[str, int]:
                 and rec.notes.startswith("cuda fused kernel lens=2-6 unit_bytes=")
                 and "clock=events" in rec.notes):
             fail(f"bad record {rec}")
+        check_cycles(rec)
         print(f"fused: {probe.op} measured {rec.latency_ns:.3f} ns per unit "
               f"(MAD {rec.mad_ns:.3f}; notes {rec.notes})")
     if rc != (1 if failures else 0):
@@ -1093,16 +1361,22 @@ def time_kernels(dev: torch.device, err: dict, *plan_launches: dict) -> list[dic
     the kernel's time on the card (CUDA events behind a lead, as the probes
     time), the plain version's wall time to completion (it may wait for the
     card inside, as the chase's host loop does), and the bound; its
-    launches summed over the plans' runs (quick's and table2's)."""
+    launches summed over the plans' runs (quick's, table2's and inkernel's).
+    K2's entry also holds its timed form's (``timed_form``), at the inkernel
+    plan's call: the add row's (8, 128) tile at n 64; its ``launches`` there
+    are the timed form's alone, K2's own those of both forms."""
     launches = {k: sum(p.get(k, 0) for p in plan_launches) for k in plan_launches[0]}
     from repro_torch.core.chains import KERNEL_CHAIN_UNROLL
     from repro_torch.core.membench import build_ring
     from repro_torch.core.timing import Timer
     from repro_torch.kernels.alu_chain import alu_chain_plain, alu_chain_timed
     from repro_torch.kernels.chase import chase, chase_plain
-    from repro_torch.kernels.opchain import op_chain, op_chain_plain
+    from repro_torch import inkernel
+    from repro_torch.core.chains import spec_by_name
+    from repro_torch.kernels.opchain import op_chain, op_chain_plain, op_chain_timed
 
     x = torch.full((8, 128), 1.0, device=dev)
+    tc, tops = inkernel.tiles(spec_by_name("add"), device=dev)
     a = torch.full((8, 128), 0.5, device=dev)
     c = torch.tensor(0xF0F0F0F0, dtype=torch.uint32, device=dev)
     p = torch.tensor(0xA5A5A5A5, dtype=torch.uint32, device=dev)
@@ -1121,6 +1395,12 @@ def time_kernels(dev: torch.device, err: dict, *plan_launches: dict) -> list[dic
          lambda: op_chain_plain(c, p, step="popc", n=512),
          3 * 4, 2 * 512,
          f"popc, 0-dim uint32 carry, n=512, unroll={KERNEL_CHAIN_UNROLL}"),
+        ("op_chain_timed", "src/repro_torch/csrc/op_chain_timed.cu",
+         "src/repro/kernels/opchain.py:39",
+         lambda: op_chain_timed(tc, *tops, step="add", n=64),
+         lambda: op_chain_plain(tc, *tops, step="add", n=64),
+         (4 * 4 + 8) * tc.numel(), 2 * 64 * tc.numel(),  # x, a, b, out; int64 cycles
+         "add, tile (8, 128) int32, n=64, timed form"),
         ("chase", "src/repro_torch/csrc/chase.cu",
          "src/repro/kernels/chase.py:119",
          lambda: chase(ring, start, steps=1536),
@@ -1143,8 +1423,12 @@ def time_kernels(dev: torch.device, err: dict, *plan_launches: dict) -> list[dic
         out.append({"name": name, "route": "cuda", "source": source,
                     "replaces": replaces, "design": designs(name),
                     "launches": launches[name],
-                    "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
+                    "max_abs_err": err.get(name), "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+    (timed,) = [k for k in out if k["name"] == "op_chain_timed"]
+    out.remove(timed)  # K2's timed form goes inside K2's entry
+    del timed["replaces"], timed["max_abs_err"]  # K2's, for both forms
+    next(k for k in out if k["name"] == "op_chain")["timed_form"] = timed
     return out
 
 
@@ -1156,11 +1440,13 @@ def clock_study(dev: torch.device, trials: int = 20, reps: int = 5) -> None:
     ``Timer.time_once``); and, for K1's fma chain, a fourth: the SM clock
     sandwich inside the kernel (median cycles over the tile's threads, as
     the quick plan's kernel.alu_chain.fma row takes it), which must have
-    no non-positive slope."""
-    from repro_torch.core.chains import KERNEL_CHAIN_UNROLL
+    no non-positive slope; and the same for K2's timed add chain, as the
+    inkernel plan's inkernel.add row (and its guard baseline) takes it."""
+    from repro_torch import inkernel
+    from repro_torch.core.chains import KERNEL_CHAIN_UNROLL, spec_by_name
     from repro_torch.core.timing import Timer, sm_clock_hz
     from repro_torch.kernels.alu_chain import alu_chain, alu_chain_timed
-    from repro_torch.kernels.opchain import op_chain
+    from repro_torch.kernels.opchain import op_chain, op_chain_timed
 
     x = torch.full((8, 128), 1.0, device=dev)
     a = torch.full((8, 128), 0.5, device=dev)
@@ -1202,20 +1488,27 @@ def clock_study(dev: torch.device, trials: int = 20, reps: int = 5) -> None:
 
     hz = sm_clock_hz(dev)
     print(f"SM clock: {hz / 1e6:.1f} MHz (%clock64 against %globaltimer over 1 ms spins)")
-    label, n1, n2 = "kernel.alu_chain.fma (8, 64)", 8, 64
-    cycles = lambda n: float(alu_chain_timed(x, a, n=n)[1].median())  # noqa: E731
-    cycles(n1), cycles(n2)  # warm
-    slopes = []
-    for _ in range(trials):
-        c1 = min(cycles(n1) for _ in range(reps))
-        c2 = min(cycles(n2) for _ in range(reps))
-        slopes.append((c2 - c1) / (n2 - n1))
-    q1, med, q3 = np.percentile(slopes, (25, 50, 75))
-    bad = sum(c <= 0 for c in slopes)
-    print(f"clock sm_clock64 {label}: {bad} of {trials} slopes non-positive; cycles/step "
-          f"q1 {q1:.3f} median {med:.3f} q3 {q3:.3f}; ns/step median {med / hz * 1e9:.3f}")
-    if bad:
-        fail(f"the SM clock sandwich gave {bad} of {trials} non-positive slopes for {label}")
+    add = spec_by_name("add")
+    carry, ops = inkernel.tiles(add, device=dev)
+    sandwiches = {  # the rows the quick and inkernel plans time by the sandwich
+        "kernel.alu_chain.fma": lambda n: alu_chain_timed(x, a, n=n)[1],
+        "inkernel.add": lambda n: op_chain_timed(carry, *ops, step="add", n=n)[1]}
+    n1, n2 = inkernel.INKERNEL_LENS
+    for label, timed in sandwiches.items():
+        cycles = lambda n: float(timed(n).median())  # noqa: E731
+        cycles(n1), cycles(n2)  # warm
+        slopes = []
+        for _ in range(trials):
+            c1 = min(cycles(n1) for _ in range(reps))
+            c2 = min(cycles(n2) for _ in range(reps))
+            slopes.append((c2 - c1) / (n2 - n1))
+        q1, med, q3 = np.percentile(slopes, (25, 50, 75))
+        bad = sum(c <= 0 for c in slopes)
+        print(f"clock sm_clock64 {label} ({n1}, {n2}): {bad} of {trials} slopes "
+              f"non-positive; cycles/step q1 {q1:.3f} median {med:.3f} q3 {q3:.3f}; "
+              f"ns/step median {med / hz * 1e9:.3f}")
+        if bad:
+            fail(f"the SM clock sandwich gave {bad} of {trials} non-positive slopes for {label}")
 
 
 def sass_functions(binary: Path) -> dict[str, list[str]]:
@@ -1240,7 +1533,7 @@ def sass_mnemonics(body: list[str]) -> list[str]:
     return [m.group(1) for m in found if m]
 
 
-def sass_checks(build: Path) -> None:
+def sass_checks(build: Path) -> dict[str, tuple[float, dict]]:
     """What each design promises, in the SASS of the built libraries (counts
     printed; a missing one fails): K5's bf16 instances run HGMMA (wgmma; or
     HMMA, mma.sync) fed by UTMALDG (TMA; or LDGSTS, cp.async); each of K6's
@@ -1248,8 +1541,11 @@ def sass_checks(build: Path) -> None:
     .128); each of K4's 16 vector instances (float32 E 4, bfloat16 E 8)
     loads by LDG.E.128 and stores by STG.E.128; K1's timed fma chain at
     n 64 reads the clock before the first of its 64 FFMAs and after the
-    last, with no branch between the reads; and K2's uint32 divides and
-    high multiply show their divisor classes (:func:`k2_sass_checks`)."""
+    last, with no branch between the reads; K2's uint32 divides and
+    high multiply show their divisor classes (:func:`k2_sass_checks`); and
+    K2's timed form brackets each in-kernel row's chain with its clock
+    reads (:func:`k2_timed_sass`, whose per-row result it returns)."""
+    @functools.cache
     def functions(lib: str) -> dict[str, list[str]]:
         return sass_functions(build / f"lib{lib}.so")
 
@@ -1343,35 +1639,47 @@ def sass_checks(build: Path) -> None:
           "the instruction before it: "
           + "; ".join(f"{i}: {text[i - 1]} | {text[i]}" for i in clock))
     k2_sass_checks(functions, mnemonics)
+    return k2_timed_sass(functions, mnemonics)
 
 
-# K2's uint32 divides and high multiply (op_chain.cu's step structs) and
-# what a step of each runs, from the SASS: (struct, a step must run one of,
-# a step must run none of, the instance must hold). A step's counts are the
-# unroll-32 instance's less the unroll-1 instance's, over the 31 steps
-# between, so the address arithmetic cancels. A mnemonic matches by prefix
-# (IMAD.HI matches IMAD.HI.U32). A runtime divisor's reciprocal (MUFU.RCP)
-# depends on the divisor alone and may be taken once, out of the loop.
+def struct_name(step: str) -> str:
+    """The name of a K2 step's struct in op_chain.cu (add.float32 ->
+    AddFloat32), as it appears, length first, in a mangled kernel name."""
+    name = "".join(p[:1].upper() + p[1:] for p in step.split("."))
+    return f"{len(name)}{name}E"
+
+
+# K2's table2 rows (the uint32 divides, high multiply, popc and clz) and
+# what a step of each runs, from the SASS: (a step must run one of, a step
+# must run none of, the instance must hold). A step's counts are the loop form's unroll-32 instance's less
+# its unroll-1 instance's, over the 31 steps between, so the address
+# arithmetic cancels. A mnemonic matches by prefix (IMAD.HI matches
+# IMAD.HI.U32). A runtime divisor's reciprocal (MUFU.RCP) depends on the
+# divisor alone and may be taken once, out of the loop.
 K2_SASS = {
-    "div.u.regular": ("DivU8", (), ("MUFU.RCP", "IMAD.HI", "IMAD.WIDE"), ()),  # a shift
-    "div.u.irregular": ("DivU6", ("IMAD.HI", "IMAD.WIDE"), ("MUFU.RCP",), ()),  # magic multiply
-    "div.u.runtime": ("DivURuntime", (), (), ("MUFU.RCP",)),  # the divide sequence
-    "rem.u": ("RemU", (), (), ("MUFU.RCP",)),
-    "mul64hi": ("Mul64Hi", ("IMAD.WIDE", "IMAD.HI"), (), ()),  # the high word
+    "div.u.regular": ((), ("MUFU.RCP", "IMAD.HI", "IMAD.WIDE"), ()),  # a shift
+    "div.u.irregular": (("IMAD.HI", "IMAD.WIDE"), ("MUFU.RCP",), ()),  # magic multiply
+    "div.u.runtime": ((), (), ("MUFU.RCP",)),  # the divide sequence
+    "rem.u": ((), (), ("MUFU.RCP",)),
+    "mul64hi": (("IMAD.WIDE", "IMAD.HI"), (), ()),  # the high word
+    "popc": ((), (), ()),  # and the other two table2 rows K2 runs
+    "clz": ((), (), ()),
 }
 
 
 def k2_step_sass(functions, mnemonics) -> dict[str, tuple[dict, dict]]:
-    """Each K2 step of ``K2_SASS``: (what one step runs, as each mnemonic's
-    count a step; each unroll instance's count of each mnemonic)."""
+    """Each K2 step of ``K2_SASS``: (what one step of the loop form runs, as
+    each mnemonic's count a step; each unroll instance's count of each
+    mnemonic)."""
     from collections import Counter
 
     out = {}
-    for step, (struct, _, _, _) in K2_SASS.items():
+    for step in K2_SASS:
         found = {int(re.search(r"Li(\d+)EEEv", n).group(1)): Counter(mnemonics(b))
-                 for n, b in functions("op_chain").items() if f"{struct}E" in n}
+                 for n, b in functions("op_chain").items()
+                 if "op_chain_kernelI" in n and struct_name(step) in n}
         if sorted(found) != [1, 32]:
-            fail(f"expected K2's {struct} at unroll 1 and 32 in the SASS, found {sorted(found)}")
+            fail(f"expected K2's {step} at unroll 1 and 32 in the SASS, found {sorted(found)}")
         per = {m: (found[32][m] - found[1][m]) / 31 for m in found[32] | found[1]}
         out[step] = ({m: c for m, c in sorted(per.items(), key=lambda kv: -kv[1]) if c > 0},
                      found)
@@ -1381,10 +1689,11 @@ def k2_step_sass(functions, mnemonics) -> dict[str, tuple[dict, dict]]:
 def k2_sass_checks(functions, mnemonics) -> None:
     """The divisor class of each of K2's uint32 rows, and mul64hi's high
     word, in the SASS: ``K2_SASS``; what one step runs is printed, and it
-    holds each mnemonic the row's notes name (``opchain.STEP_SASS``)."""
+    holds each mnemonic the row's notes name (``opchain.STEP_SASS``, the
+    table both forms share)."""
     from repro_torch.kernels.opchain import STEP_SASS
     for step, (per, found) in k2_step_sass(functions, mnemonics).items():
-        _, one_of, none_of, holds = K2_SASS[step]
+        one_of, none_of, holds = K2_SASS[step]
         has = lambda p: sum(c for m, c in per.items() if m.startswith(p))  # noqa: E731
         held = {p: [sum(c for m, c in found[u].items() if m.startswith(p)) for u in (1, 32)]
                 for p in holds}
@@ -1401,6 +1710,66 @@ def k2_sass_checks(functions, mnemonics) -> None:
         claimed = STEP_SASS[step].split("+")  # what the row's notes say a step runs
         if not all(has(m) >= 0.99 for m in claimed):
             fail(f"K2 {step}: a step does not run each of {claimed} (its notes): {per}")
+
+
+BRANCHES = ("BRA", "BRX", "JMP", "JMX", "CALL")
+
+
+def k2_timed_sass(functions, mnemonics) -> dict[str, tuple[float, dict]]:
+    """K2's timed form for each of the 58 in-kernel rows, in the SASS of its
+    straight-line instances at n 8 and 64: the clock reads bracket the
+    chain (nothing that grows with n lies before the first read, and no
+    branch lies between the reads beyond those of the steps themselves, a
+    slow path's test: 8 times as many at n 64 as at n 8); what one step
+    runs, the mnemonics between the reads at n 64 less those at n 8, over
+    the 56 steps between; a row under one instruction a step is folded.
+    Each row's mnemonics named in ``opchain.STEP_SASS`` must be
+    there. Returns each row's (instructions a step, their mnemonics)."""
+    from collections import Counter
+
+    from repro_torch import inkernel
+    from repro_torch.kernels.opchain import STEP_SASS, TIMED_LENS
+
+    n1, n2 = TIMED_LENS
+    lib = functions("op_chain_timed")
+    out, folded = {}, []
+    for spec in inkernel.supported_specs():
+        seen = {}
+        for n in TIMED_LENS:
+            (body,) = [b for name, b in lib.items() if "op_chain_timed_kernelI" in name
+                       and f"{struct_name(spec.name)}Li{n}E" in name]
+            ops = mnemonics(body)
+            reads = [i for i, ln in enumerate(body) if "SR_CLOCK" in ln]
+            if not reads or len(reads) % 2:
+                fail(f"K2 timed {spec.name} n {n}: clock reads at {reads} in its SASS")
+            lo, hi = reads[len(reads) // 2 - 1], reads[len(reads) // 2]
+            between = Counter(ops[lo + 1:hi])
+            seen[n] = (reads, between, sum(c for m, c in between.items()
+                                           if m.split(".")[0] in BRANCHES))
+        per = {m: (seen[n2][1][m] - seen[n1][1][m]) / (n2 - n1)
+               for m in seen[n2][1] | seen[n1][1]}
+        per = {m: c for m, c in sorted(per.items(), key=lambda kv: -kv[1]) if c > 0}
+        total = sum(per.values())
+        (r1, _, b1), (r2, _, b2) = seen[n1], seen[n2]
+        if r2[0] - r1[0] >= max(total, 1.0):
+            fail(f"K2 timed {spec.name}: {r2[0]} instructions before the first clock read at "
+                 f"n {n2}, {r1[0]} at n {n1}: the chain is not between the reads")
+        if b2 != (n2 // n1) * b1:
+            fail(f"K2 timed {spec.name}: {b1} / {b2} branches between the reads at n {n1} / "
+                 f"{n2}: a loop between the reads")
+        print(f"sass: K2 timed {spec.name}: reads at {r1} / {r2} (n {n1} / {n2}), branches "
+              f"between {b1} / {b2}; a step runs {total:.2f} instructions: "
+              + ", ".join(f"{m} {c:.2f}" for m, c in per.items()))
+        claimed = STEP_SASS.get(spec.name)
+        if claimed and not all(sum(c for m, c in per.items() if m.startswith(p)) >= 0.99
+                               for p in claimed.split("+")):
+            fail(f"K2 timed {spec.name}: a step does not run each of {claimed} (its notes)")
+        if total < 1.0:
+            folded.append(spec.name)
+        out[spec.name] = (total, per)
+    print(f"sass: K2 timed form: {len(out)} rows, the clock reads bracket each chain; "
+          f"folded (under one instruction a step): {folded or 'none'}")
+    return out
 
 
 def spill_checks(build: Path) -> None:
@@ -1422,9 +1791,10 @@ def spill_checks(build: Path) -> None:
 
 def loop_study(dev: torch.device, lens: tuple[int, int] = (64, 512),
                reps: int = 30) -> None:
-    """op_chain's loop on the card: each step's time per step (the slope at
-    ``lens``, events behind the lead) with 1 step to an iteration of the
-    kernel's loop, as the fori_loop runs, and with 32, as the O3 rows run.
+    """op_chain's loop on the card, for the steps the table2 plan's rows
+    launch: each step's time per step (the slope at ``lens``, events behind
+    the lead) with 1 step to an iteration of the kernel's loop, as the
+    fori_loop runs, and with 32, as the O3 rows run.
     With s the step and L the loop's cost per iteration, the two are s + L
     and s + L/32, so L = (t1 - t32) * 32/31."""
     from repro_torch.core.chains import spec_by_name
@@ -1432,7 +1802,7 @@ def loop_study(dev: torch.device, lens: tuple[int, int] = (64, 512),
     from repro_torch.kernels.opchain import STEPS, UNROLLS, op_chain
 
     timer = Timer(warmup=3, reps=reps, device=dev)
-    for step in STEPS:
+    for step in list(STEPS)[:8]:  # the table2 plan's kernel rows and add
         spec = spec_by_name(step)
         carry, ops = spec.carry(dev), spec.operand_tensors(dev)
         per_step = {}
@@ -1478,7 +1848,7 @@ def main() -> int:
                 print(f"  ptxas: {line.strip()}")
             elif line.startswith("== "):  # a source and its nvcc's return code
                 print(f"  nvcc: {line[3:]}")
-        sass_checks(build)
+        timed_sass = sass_checks(build)
         spill_checks(build)
         phase("build", t0)
 
@@ -1498,11 +1868,15 @@ def main() -> int:
         phase("table2", t0)
 
         t0 = time.perf_counter()
+        inkernel_launches = run_inkernel(dev, db_path, timed_sass)
+        phase("inkernel", t0)
+
+        t0 = time.perf_counter()
         fused_launches = run_fused(dev)
         phase("fused", t0)
 
         t0 = time.perf_counter()
-        kernels = time_kernels(dev, err, launches, table2_launches)
+        kernels = time_kernels(dev, err, launches, table2_launches, inkernel_launches)
         kernels += time_fused(dev, fused_err, jamba, cases, fused_launches)
         clock_study(dev)
         loop_study(dev)

@@ -7,7 +7,16 @@ Examples::
     python -m repro_torch characterize --plan quick --db db.json --force
     python -m repro_torch characterize --plan quick --db db.json --device cpu
     python -m repro_torch characterize --plan table2 --db db.json --table
+    python -m repro_torch characterize --plan inkernel --db db.json --table
+    python -m repro_torch characterize --plan inkernel --db db.json --device cpu \
+        --ops add,popc,fma.float32 --table
     python -m repro_torch characterize --plan fused --db db.json --table
+
+``--plan inkernel`` times each of the 58 in-kernel rows inside the kernel
+(on the card by the SM clock sandwich) beside its dispatch-level O3 twin;
+``--table`` then prints the pairing, dispatch against in-kernel (the
+paper's in-pipeline method). On a DB that already holds table2's rows the
+twins are cache hits.
 
 It runs on ``cuda:0`` unless ``--device`` names another device; where the
 card is asked for and there is none it exits with an error, it does not run
@@ -39,7 +48,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="run a characterization plan into a LatencyDB")
     ch.add_argument("--plan", choices=PLAN_NAMES, default="quick",
                     help="named probe plan (default: quick; ported so far: "
-                         "quick, table2, fused)")
+                         "quick, table2, inkernel, fused)")
     ch.add_argument("--db", required=True,
                     help="LatencyDB JSON path (loaded if present; flushed "
                          "after every probe)")
@@ -53,7 +62,8 @@ def build_parser() -> argparse.ArgumentParser:
     ch.add_argument("--opt-levels", default=None,
                     help="comma-separated opt-level filter (e.g. O0,O3)")
     ch.add_argument("--table", action="store_true",
-                    help="print the Table II analog after the run")
+                    help="print the Table II analog after the run, and the "
+                         "dispatch vs in-kernel pairing where the DB has both")
     ch.add_argument("--recover", action="store_true",
                     help="salvage complete records from a truncated/corrupt "
                          "DB file instead of refusing to load it")
@@ -106,6 +116,10 @@ def cmd_characterize(args: argparse.Namespace) -> int:
     if args.table:
         print()
         print(result.table_markdown())
+        compare = session.db.compare_markdown()
+        if compare.count("\n") > 1:  # header + separator + >=1 paired row
+            print("\n== host vs in-kernel (paper's in-pipeline method) ==")
+            print(compare)
     return 1 if result.failed else 0
 
 

@@ -2,8 +2,8 @@
 
 A :class:`Plan` is an ordered, duplicate-free tuple of probes; builders make
 the paper's sweeps, ``+`` composes plans and ``filter`` trims them. The
-algebra and the ``quick``, ``table2`` and ``fused`` plans are those of
-``repro.api.plan``, so both packages give the same ordered logical keys.
+algebra and the ``quick``, ``table2``, ``inkernel`` and ``fused`` plans are
+those of ``repro.api.plan``, so both packages give the same ordered logical keys.
 The other named plans of the JAX package are not ported yet.
 """
 from __future__ import annotations
@@ -13,8 +13,8 @@ from typing import Iterable, Iterator, Sequence
 
 from repro_torch import inkernel
 from repro_torch.api.probes import (ClockOverheadProbe, FusedKernelProbe,
-                                    InstructionProbe, KernelProbe, MemoryProbe,
-                                    Probe)
+                                    InstructionProbe, KernelChainProbe, KernelProbe,
+                                    MemoryProbe, Probe)
 from repro_torch.core import chains
 from repro_torch.core.chains import OpSpec
 from repro_torch.core.optlevels import OPT_LEVELS
@@ -29,7 +29,7 @@ QUICK_OPS = ("add", "mul", "mad", "div.s.regular", "div.s.irregular",
 PLAN_NAMES = ("quick", "table2", "memory", "inkernel", "memory-inkernel",
               "fused", "serving", "collectives", "serving-sharded", "slo",
               "full")
-PORTED_PLANS = ("quick", "table2", "fused")
+PORTED_PLANS = ("quick", "table2", "inkernel", "fused")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,6 +119,22 @@ class Plan:
         return Plan(tuple(FusedKernelProbe(n, lens=lens) for n in names),
                     name="fused")
 
+    @staticmethod
+    def inkernel(registry: Sequence[OpSpec] | None = None,
+                 ops: Iterable[str] | None = None,
+                 categories: Iterable[str] | None = None,
+                 lens: tuple[int, int] | None = None,
+                 dispatch_pair: bool = True) -> "Plan":
+        """An in-kernel chain per eligible registry row (the paper's
+        in-pipeline method), paired by default with the same row's
+        dispatch-level O3 probe, so that one run fills both sides of the
+        dispatch-vs-in-kernel table."""
+        specs = inkernel.supported_specs(registry, ops=ops, categories=categories)
+        probes: list[Probe] = [KernelChainProbe(s, lens=lens) for s in specs]
+        if dispatch_pair:
+            probes += [InstructionProbe(s, "O3") for s in specs]
+        return Plan(_dedupe(tuple(probes)), name="inkernel")
+
 
 def _compose_name(a: str, b: str, max_parts: int = 3) -> str:
     """Name for ``a + b``: deduped '+'-join, capped (``a+b+c+2more``)."""
@@ -160,6 +176,8 @@ def named_plan(name: str) -> Plan:
     elif name == "table2":
         plan = (Plan.clock_overhead(("O0", "O3"))
                 + Plan.instructions(opt_levels=("O0", "O3")))
+    elif name == "inkernel":
+        plan = Plan.inkernel()
     elif name == "fused":
         plan = Plan.fused()
     elif name in PLAN_NAMES:

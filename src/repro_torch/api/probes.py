@@ -13,22 +13,26 @@ packages.
 * :class:`ClockOverheadProbe` — the cost of the timed region itself (Fig. 5).
 * :class:`KernelProbe` — the in-kernel dependent ALU chain (the paper's
   timed PTX block), through the ``alu_chain`` kernel.
+* :class:`KernelChainProbe` — one registry :class:`OpSpec` as an in-kernel
+  chain through the ``op_chain`` kernel (``inkernel.<row>``; plan name
+  ``inkernel``).
 * :class:`FusedKernelProbe` — one fused kernel (rmsnorm, flash_attention,
   flash_decode, mamba_scan) as a two-size workload slope.
 """
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Any, Callable, Mapping
 
 import torch
 
 from repro_torch import inkernel
 from repro_torch.core import measure, membench
-from repro_torch.core.chains import KERNEL_CHAIN_UNROLL, OpSpec
+from repro_torch.core.chains import KERNEL_CHAIN_UNROLL, OpSpec, spec_by_name
 from repro_torch.core.latency_db import LatencyRecord
 from repro_torch.core.optlevels import compile_at_level
-from repro_torch.core.timing import Measurement, Timer, sandwich_slope, sm_clock_hz
+from repro_torch.core.timing import Measurement, Timer, sandwich_slope
 from repro_torch.kernels.alu_chain import alu_chain, alu_chain_timed
 from repro_torch.kernels.opchain import STEP_SASS
 from repro_torch.utils import timestamp
@@ -40,7 +44,8 @@ class ProbeContext:
 
     timer: Timer
     env: Mapping[str, str]              # device_kind / backend / jax_version
-    clock_hz: float
+    clock_hz: float                     # what ``cycles`` count: the SM clock on
+                                        # the card, the host pseudo-clock on the CPU
     baseline_ns: Callable[[str], float]  # per-level 1-cycle-class baseline
     kernel_baseline_ns: Callable[[], float]  # the same, inside op_chain
     device: torch.device
@@ -103,15 +108,16 @@ class Probe:
     # ------------------------------------------------------------------ util
     def _record(self, ctx: ProbeContext, m: Measurement, *, guard: int = 0,
                 notes: str = "", baseline: float | None = None,
-                clock: str | None = None, clock_hz: float | None = None) -> LatencyRecord:
+                clock: str | None = None) -> LatencyRecord:
         """Build the result record from a Measurement, netting out guards.
 
         ``baseline`` overrides the session's dispatch-level add baseline for
         probes whose guard ops run under another methodology (in-kernel).
         The notes end with the clock that timed the row (``clock``, by
         default the timer's); a slope taken at the widened retry's lengths
-        says so (``retry_lens=n1-n2``). ``cycles`` counts at ``clock_hz``,
-        by default the session's clock.
+        says so (``retry_lens=n1-n2``). ``cycles`` counts at the session's
+        ``clock_hz``; on the card that is the SM clock, and the notes name
+        it (``cycles_at=sm_clock64@<MHz>``).
         """
         extra = []
         if ctx.adaptive:
@@ -124,11 +130,13 @@ class Probe:
         net = ns - guard * base
         if net < 0.0:  # flag the clamp below: a wrong guard count or baseline
             extra.append("clamped=1")
+        if ctx.device.type == "cuda":
+            extra.append(f"cycles_at=sm_clock64@{ctx.clock_hz / 1e6:.0f}")
         extra.append(f"clock={clock or ctx.timer.clock}")
         return LatencyRecord(
             op=self.op, category=self.category, dtype=self.dtype,
             opt_level=self.opt_level, latency_ns=ns, mad_ns=m.mad_ns,
-            cycles=ns * (clock_hz or ctx.clock_hz) / 1e9, guard=guard,
+            cycles=ns * ctx.clock_hz / 1e9, guard=guard,
             net_latency_ns=max(net, 0.0), n_samples=m.n,
             measured_at=timestamp(), notes=" ".join([notes, *extra]).strip(),
             **ctx.env)
@@ -254,9 +262,8 @@ class KernelProbe(Probe):
     its chain (``alu_chain_timed``); a launch counts the median of the
     tile's cycles, a length the minimum over the reps, and the slope in
     cycles (:func:`~repro_torch.core.timing.sandwich_slope`) becomes ns at
-    the SM clock measured just before (:func:`~repro_torch.core.timing.
-    sm_clock_hz`), which the row's ``cycles`` count and its notes name
-    (``clock=sm_clock64@<MHz>``). On the CPU the whole ``alu_chain`` call is
+    the session's SM clock (``ProbeContext.clock_hz``), which the row's
+    notes name (``clock=sm_clock64@<MHz>``). On the CPU the whole ``alu_chain`` call is
     the timed region on the host clock and the two-length slope cancels its
     overhead.
     """
@@ -303,12 +310,97 @@ class KernelProbe(Probe):
             m = ctx.timer.slope(fn_by_len, *self.lens, x, a, reps=self.reps)
             return self._record(
                 ctx, m, notes=f"plain alu_chain tile={self.shape} lens={self.lens}")
-        hz = sm_clock_hz(ctx.device)
         m = sandwich_slope(lambda n: lambda: fn_by_len(n)(x, a)[1], *self.lens,
-                           clock_hz=hz, reps=self.reps, warmup=max(ctx.timer.warmup, 1))
+                           clock_hz=ctx.clock_hz, reps=self.reps,
+                           warmup=max(ctx.timer.warmup, 1))
         return self._record(
             ctx, m, notes=f"cuda alu_chain tile={self.shape} lens={self.lens}",
-            clock=f"sm_clock64@{hz / 1e6:.0f}", clock_hz=hz)
+            clock=f"sm_clock64@{ctx.clock_hz / 1e6:.0f}")
+
+
+class KernelChainProbe(Probe):
+    """One registry :class:`OpSpec` as an in-kernel chain (the paper's
+    in-pipeline measurement, ``repro_torch.inkernel``), through K2.
+
+    Shares the record schema and category with the row's dispatch-level
+    :class:`InstructionProbe`, under the op name ``inkernel.<name>``: both
+    rows live in one LatencyDB, which ``LatencyDB.compare_markdown`` pairs
+    up. ``opt_level`` is ``"O3"``: the kernel is always compiled, there is
+    no eager analog. Non-default chain lengths or tiles are another
+    experiment and part of the op name (``.l<n1>-<n2>``, ``.t<R>x<C>``),
+    as in the JAX package; ``lens=None`` means ``inkernel.INKERNEL_LENS``.
+
+    On the card the chain is timed by K2's clock sandwich (each thread
+    reads ``%clock64`` around its chain; the slope in SM cycles, converted
+    at the session's SM clock); on the CPU the plain chain on the host
+    clock. Guard netting stays in-method: the ``guard x add`` subtraction
+    uses an *in-kernel* add baseline, the ``add`` row's chain measured the
+    same way at the same lengths (once per timer and lengths), never the
+    dispatch-level baseline nor ``Session.kernel_baseline_ns`` (the table2
+    rows' events-timed one at (64, 512)).
+    """
+
+    # per-(timer, lens) in-kernel add baseline; weak keys, so that a
+    # session's timer does not outlive it
+    _baselines: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+    def __init__(self, spec: OpSpec, lens: tuple[int, int] | None = None,
+                 shape: tuple[int, int] | None = None, reps: int = 5):
+        if not inkernel.supported(spec):
+            raise ValueError(f"spec {spec.name!r} cannot lower in-kernel")
+        self.spec = spec
+        self.lens = tuple(lens) if lens is not None else tuple(inkernel.INKERNEL_LENS)
+        self.shape = tuple(shape) if shape is not None else None
+        self.reps = reps
+        self.opt_level = "O3"
+        self.dtype = spec.dtype
+        self.category = spec.category
+        self.base_op = f"inkernel.{spec.name}"
+        self.op = self.base_op
+        if self.lens != tuple(inkernel.INKERNEL_LENS):
+            self.op += f".l{self.lens[0]}-{self.lens[1]}"
+        if self.shape is not None:
+            self.op += f".t{self.shape[0]}x{self.shape[1]}"
+
+    def match_names(self) -> frozenset[str]:
+        # the full name, the unsuffixed in-kernel name, and the dispatch
+        # row's name (``--ops add`` keeps ``inkernel.add``)
+        return frozenset((self.op, self.base_op, self.spec.name))
+
+    def _measure(self, ctx: ProbeContext, prepared) -> Measurement:
+        # on the card the session's SM clock converts the sandwich's cycles
+        return inkernel.run_prepared_inkernel(prepared, ctx.timer, clock_hz=ctx.clock_hz)
+
+    def _inkernel_baseline_ns(self, ctx: ProbeContext) -> float:
+        """The in-kernel 1-cycle-class baseline: the ``add`` row's (add ^ xor)
+        chain in-kernel at the same lengths, / (1 + its guard)."""
+        per_timer = KernelChainProbe._baselines.setdefault(ctx.timer, {})
+        if self.lens not in per_timer:
+            base = spec_by_name("add")
+            prepared = inkernel.prepare_inkernel(base, lens=self.lens, device=ctx.device,
+                                                 reps=self.reps)
+            m = self._measure(ctx, prepared)
+            per_timer[self.lens] = max(m.median_ns, 0.0) / (1 + base.guard)
+        return per_timer[self.lens]
+
+    def prepare(self, ctx: ProbeContext):
+        return inkernel.prepare_inkernel(self.spec, lens=self.lens, shape=self.shape,
+                                         device=ctx.device, reps=self.reps)
+
+    def run_prepared(self, ctx: ProbeContext, prepared) -> LatencyRecord:
+        m = self._measure(ctx, prepared)
+        baseline = self._inkernel_baseline_ns(ctx) if self.spec.guard else None
+        tile = self.shape or inkernel.default_tile(self.spec.dtype)
+        layout = f"lens={self.lens[0]}-{self.lens[1]} tile={tile[0]}x{tile[1]}"
+        if ctx.device.type == "cpu":
+            return self._record(ctx, m, guard=self.spec.guard, baseline=baseline,
+                                notes=f"plain op_chain {layout}")
+        step = STEP_SASS.get(self.spec.name)
+        notes = " ".join(filter(None, (
+            f"cuda op_chain clock64 sandwich {layout} {inkernel.tile_layout(tile)}",
+            self.spec.guard and "guard_base=inkernel.add", step and f"step_sass={step}")))
+        return self._record(ctx, m, guard=self.spec.guard, baseline=baseline, notes=notes,
+                            clock=f"sm_clock64@{ctx.clock_hz / 1e6:.0f}")
 
 
 class FusedKernelProbe(Probe):

@@ -1,8 +1,9 @@
 """The session: single front door for all characterization runs.
 
 A :class:`Session` owns the pieces every sweep needs once — the device, the
-:class:`Timer`, the environment fingerprint, the calibrated clock, the
-guard baselines and a :class:`LatencyDB`-backed result cache — and runs
+:class:`Timer`, the environment fingerprint, the clock that ``cycles``
+count (the SM clock on the card), the guard baselines and a
+:class:`LatencyDB`-backed result cache — and runs
 :class:`Plan`\\ s incrementally, as ``repro.api.session`` does:
 
 * probes whose key is already in the DB are skipped (``force=True``
@@ -44,7 +45,7 @@ from repro_torch.api.probes import Probe, ProbeContext
 from repro_torch.core import chains, measure
 from repro_torch.core.latency_db import (LatencyDB, LatencyRecord, ProbeFailure,
                                          current_environment)
-from repro_torch.core.timing import AdaptiveFidelity, Timer
+from repro_torch.core.timing import AdaptiveFidelity, Timer, sm_clock_hz
 from repro_torch.kernels.common import resolve_device
 from repro_torch.utils import logger, timestamp
 
@@ -191,6 +192,7 @@ class Session:
         self.force = force
         self.env = current_environment(self.device)
         self._baseline: dict[tuple, float] = {}
+        self._clock_hz: float | None = None
 
     # ------------------------------------------------------------- baseline
     def baseline_ns(self, opt_level: str, use_db: bool = True) -> float:
@@ -223,9 +225,20 @@ class Session:
             self._baseline[("kernel",)] = ns / (1 + base.guard)
         return self._baseline[("kernel",)]
 
+    def clock_hz(self) -> float:
+        """The clock a record's ``cycles`` count: on the card the SM clock
+        (``sm_clock_hz``: %clock64 against the card's ns timer), sampled once
+        a session, so that ``cycles`` are the unit of the paper's Table II;
+        on the CPU the JAX package's host pseudo-clock
+        (``Timer.calibrate_clock_hz``)."""
+        if self._clock_hz is None:
+            self._clock_hz = (sm_clock_hz(self.device) if self.device.type == "cuda"
+                              else self.timer.calibrate_clock_hz())
+        return self._clock_hz
+
     def _context(self, force: bool = False) -> ProbeContext:
         return ProbeContext(timer=self.timer, env=self.env,
-                            clock_hz=self.timer.calibrate_clock_hz(),
+                            clock_hz=self.clock_hz(),
                             baseline_ns=lambda lv: self.baseline_ns(
                                 lv, use_db=not force),
                             kernel_baseline_ns=self.kernel_baseline_ns,

@@ -400,6 +400,61 @@ class LatencyDB:
         return markdown_table(headers, rows)
 
     @staticmethod
+    def _host_twin(base: str) -> str:
+        """The dispatch-level row an in-kernel row pairs with.
+
+        Chain rows pair by name (``inkernel.add`` <-> ``add``); the memory
+        rows follow their own naming on each side, so ``inkernel.mem.<N>``
+        pairs with the host chase at the same working set,
+        ``mem.chase.ws<N>``. Fidelity-suffixed variants fall through
+        unchanged, and so stay unpaired: another experiment.
+        """
+        if base.startswith("mem.") and base[4:].isdigit():
+            return f"mem.chase.ws{base[4:]}"
+        return base
+
+    def compare_markdown(self, prefix: str = "inkernel.",
+                         opt_level: str = "O3") -> str:
+        """Dispatch vs in-kernel: rows measured both ways, side by side.
+
+        Pairs every dispatch-level record with its ``<prefix>``-named twin
+        (:meth:`_host_twin`) at the same dtype, opt level **and
+        environment**: a DB may hold runs of several devices or builds, and
+        a ratio across them would mean nothing. Fidelity-suffixed variants
+        (``inkernel.add.l4-32``) are another experiment and are not paired.
+        The ratio column is the in-pipeline share of the dispatch-level
+        number: the launch and dispatch blur that the paper's in-pipeline
+        sampling removes. The JAX package's ``serving.`` and ``coll.``
+        renderings are not ported yet (their plans are not) and raise.
+        """
+        if prefix in ("serving.", "coll."):
+            raise NotImplementedError(
+                f"compare_markdown(prefix={prefix!r}): the {prefix[:-1]} rows' table is not "
+                "ported yet; their plans come with a later slice (ROADMAP.md)")
+        plain: dict[tuple, LatencyRecord] = {}
+        inker: dict[tuple, LatencyRecord] = {}
+        for r in self._records.values():
+            if r.opt_level != opt_level:
+                continue
+            env = (r.device_kind, r.backend, r.jax_version)
+            if r.op.startswith(prefix):
+                inker[env + (self._host_twin(r.op[len(prefix):]), r.dtype)] = r
+            else:
+                plain[env + (r.op, r.dtype)] = r
+        rows = []
+        for k in sorted(set(plain) & set(inker), key=lambda k: (
+                plain[k].category,) + k[:3] + (self._natural(k[3]), k[4])):
+            d, ik = plain[k], inker[k]
+            ratio = (f"{ik.latency_ns / d.latency_ns:.3f}"
+                     if d.latency_ns > 0 else "—")
+            rows.append([d.category, k[3], k[4],
+                         f"{d.latency_ns:.2f}±{d.mad_ns:.2f}",
+                         f"{ik.latency_ns:.2f}±{ik.mad_ns:.2f}", ratio])
+        return markdown_table(
+            ["category", "op", "dtype", f"dispatch {opt_level} (ns)",
+             "in-kernel (ns)", "in-kernel/dispatch"], rows)
+
+    @staticmethod
     def _natural(op: str) -> tuple:
         """Sort key ordering embedded integers numerically, so the memory
         ladder reads ws4096 < ws65536 < ws1048576 instead of lexically."""

@@ -25,12 +25,13 @@ Every probe records which one in its notes.
 
 On the card a third clock reaches inside a kernel: the paper's own
 sandwich, the SM's ``%clock64`` read by each thread right before and right
-after its dependent chain (``alu_chain_timed``). ``sandwich_slope`` takes
-the two-length slope in SM cycles, and ``sm_clock_hz`` (the cycle counter
-against the card's nanosecond timer) converts it to time. Only the
-in-kernel chain's row is timed so and counts SM cycles; every other row's
-``cycles`` column keeps the pseudo-clock of ``Timer.calibrate_clock_hz``.
-The TPU had no such counter.
+after its dependent chain (``alu_chain_timed``, ``op_chain_timed``).
+``sandwich_slope`` takes the two-length slope in SM cycles, and
+``sm_clock_hz`` (the cycle counter against the card's nanosecond timer)
+converts it to time. The in-kernel rows are timed so; on the card every
+row's ``cycles`` column counts SM cycles at the session's ``sm_clock_hz``,
+and on the CPU the pseudo-clock of ``Timer.calibrate_clock_hz``. The TPU
+had no such counter.
 """
 from __future__ import annotations
 
@@ -313,8 +314,9 @@ class Timer:
         """Effective clock for ns -> cycle conversion.
 
         The JAX package's pseudo-clock, kept for parity of the ``cycles``
-        column: a spin loop of known iteration count on the host, clamped to
-        [0.1, 5] GHz. (The SM clock itself is not read yet.)
+        column on the CPU: a spin loop of known iteration count on the host,
+        clamped to [0.1, 5] GHz. On the card a session counts ``cycles`` on
+        the SM clock instead (``sm_clock_hz``, ``Session.clock_hz``).
         """
         if self.clock_hz:
             return self.clock_hz

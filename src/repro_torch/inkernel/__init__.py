@@ -1,7 +1,19 @@
-"""``repro_torch.inkernel`` — the fused production kernels as probe rows.
+"""``repro_torch.inkernel`` — the paper's in-pipeline probes, inside kernels.
 
-The fused half of ``repro.inkernel``:
+The dispatch-level path (``repro_torch.core.measure``) times a chain from
+outside its kernels. The paper instead samples ``%clock`` around a
+dependent chain inside the pipeline; the card can do that, as the TPU of
+the JAX package could not. The chain and fused halves of
+``repro.inkernel``:
 
+* :func:`supported` / :func:`supported_specs` — the 58 registry rows that
+  run inside a kernel (the JAX package's rule: 64-bit rows stay on the
+  dispatch path); :func:`default_tile`, :func:`tiles` and
+  :func:`build_chain` — a row's chain in one K2 launch;
+* :func:`measure_inkernel_full` / :func:`prepare_inkernel` /
+  :func:`run_prepared_inkernel` — per-step latency from the slope between
+  two chain lengths (``inkernel.<row>`` rows), on the card from K2's clock
+  sandwich in SM cycles;
 * :func:`build_fused` — each fused kernel's unit workload at ``n`` units
   (the JAX package's arguments, bit for bit), and :func:`fused_kwargs`,
   the keywords it passes the kernel's wrapper;
@@ -10,17 +22,25 @@ The fused half of ``repro.inkernel``:
   workload sizes (``inkernel.fused.<name>`` rows);
 * :func:`unit_bytes` — the bytes a unit adds, carried in the row's notes.
 
-The scheduled front door is :class:`repro_torch.api.FusedKernelProbe`
-(plan name ``fused``). The chain and chase halves of ``repro.inkernel``
-are not ported yet.
+The scheduled front doors are :class:`repro_torch.api.KernelChainProbe`
+(plan name ``inkernel``) and :class:`repro_torch.api.FusedKernelProbe`
+(plan name ``fused``). The chase half of ``repro.inkernel`` is not ported
+yet.
 """
+from repro_torch.inkernel.factory import (build_chain, default_tile, supported,
+                                          supported_specs, tile_layout, tiles)
 from repro_torch.inkernel.fused import (FUSED_KERNELS, FUSED_LENS, build_fused,
                                         fused_kwargs)
-from repro_torch.inkernel.measure import (PreparedKernel, measure_fused_full,
-                                          prepare_fused, run_prepared_fused,
+from repro_torch.inkernel.measure import (INKERNEL_LENS, PreparedKernel,
+                                          measure_fused_full, measure_inkernel_full,
+                                          prepare_fused, prepare_inkernel,
+                                          run_prepared_fused, run_prepared_inkernel,
                                           unit_bytes)
 
 __all__ = [
-    "FUSED_KERNELS", "FUSED_LENS", "PreparedKernel", "build_fused",
-    "fused_kwargs", "measure_fused_full", "prepare_fused", "run_prepared_fused", "unit_bytes",
+    "FUSED_KERNELS", "FUSED_LENS", "INKERNEL_LENS", "PreparedKernel", "build_chain",
+    "build_fused", "default_tile", "fused_kwargs", "measure_fused_full",
+    "measure_inkernel_full", "prepare_fused", "prepare_inkernel", "run_prepared_fused",
+    "run_prepared_inkernel", "supported", "supported_specs", "tile_layout", "tiles",
+    "unit_bytes",
 ]

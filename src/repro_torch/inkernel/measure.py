@@ -1,10 +1,15 @@
-"""Slope extraction for the fused kernels (the fused half of
-``repro/inkernel/measure.py``).
+"""Slope extraction for the in-kernel chains and the fused kernels (the
+chain and fused halves of ``repro/inkernel/measure.py``).
 
-Two workload sizes share the launch path and the kernel's tile shapes, so
-``(T(n2) - T(n1)) / (n2 - n1)`` is the per-unit kernel cost. Reuses
-:meth:`Timer.slope` unchanged, so these rows and the chain rows come from
-one algebra.
+Two kernels that differ only in chain length (or workload size) share the
+launch path and the tile, so ``(T(n2) - T(n1)) / (n2 - n1)`` is the cost of
+a step (or a unit). The fused kernels and, on the CPU, the chains are timed
+around the whole call with :meth:`Timer.slope`. On the card a chain is
+timed the paper's way, inside the kernel: K2's timed form reads the SM's
+``%clock64`` around each thread's chain, and
+:func:`~repro_torch.core.timing.sandwich_slope` takes the slope in SM
+cycles, converted to ns at the SM clock; neither the host clock nor bare
+events resolve 56 steps of a 2 ns op.
 """
 from __future__ import annotations
 
@@ -14,22 +19,38 @@ from typing import Callable
 
 import torch
 
-from repro_torch.core.timing import Measurement, Timer
+from repro_torch.core.chains import OpSpec
+from repro_torch.core.measure import retry_lens_for
+from repro_torch.core.timing import Measurement, Timer, sandwich_slope, sm_clock_hz
+from repro_torch.inkernel.factory import build_chain, tiles
 from repro_torch.inkernel.fused import FUSED_LENS, build_fused
 from repro_torch.kernels.common import resolve_device
+from repro_torch.kernels.opchain import op_chain_timed
 from repro_torch.utils import block
+
+# The in-kernel chains' two lengths, as in the JAX package: 8 and 64 steps
+# put 56 steps of the op between them, and K2's timed form is straight-line
+# at both (TIMED_LENS).
+INKERNEL_LENS = (8, 64)
 
 
 @dataclasses.dataclass
 class PreparedKernel:
-    """Built two-size kernel callables plus their slope parameters: the
-    build half of a fused probe, consumed by :func:`run_prepared_fused`.
-    Each callable closes over its own workload (the two sizes have
-    different input shapes), so ``Timer.slope`` times zero-argument
-    thunks."""
+    """Built two-length kernel callables plus their slope parameters: the
+    build half of an in-kernel chain or fused probe, consumed by
+    :func:`run_prepared_inkernel` / :func:`run_prepared_fused`.
+
+    A chain's callables take ``args`` (the carry and operand tiles); on the
+    card (``sandwich``) each returns its threads' SM cycles. A fused
+    kernel's callables close over their own workload (the two sizes have
+    different input shapes), so ``args`` is empty and ``Timer.slope``
+    times zero-argument thunks."""
 
     lens: tuple[int, int]
     reps: int | None
+    args: tuple = ()
+    retry_lens: tuple[int, int] | None = None
+    sandwich: bool = False
     _fns: dict[int, Callable] = dataclasses.field(default_factory=dict)
     _build: Callable[[int], Callable] | None = None
 
@@ -91,3 +112,67 @@ def unit_bytes(name: str) -> int:
         fn, args = build_fused(name, n, "cpu")
         total.append(sum(t.nbytes for t in (*args, fn(*args))))
     return (total[1] - total[0]) // (n2 - n1)
+
+
+def prepare_inkernel(spec: OpSpec, lens: tuple[int, int] = INKERNEL_LENS,
+                     shape: tuple[int, int] | None = None,
+                     device: str | torch.device | None = None,
+                     reps: int | None = None) -> PreparedKernel:
+    """Build ``spec``'s chain tiles on ``device`` (default ``cuda:0``) and
+    run the chain at both lengths once, which builds and loads K2; no
+    timing. On the card the callables are K2's timed form and return each
+    thread's cycles; on the CPU they are the plain chain."""
+    device = resolve_device(device)
+    n1, n2 = lens
+    if spec.max_chain is not None:
+        n1, n2 = min(n1, max(spec.max_chain // 3, 1)), min(n2, spec.max_chain)
+    carry, operands = tiles(spec, shape, device)
+    sandwich = device.type == "cuda"
+
+    def build(n: int) -> Callable:
+        if sandwich:
+            fn = lambda *args: op_chain_timed(*args, step=spec.name, n=n)[1]  # noqa: E731
+        else:
+            fn = build_chain(spec, n)
+        block(fn(carry, *operands))
+        return fn
+
+    prepared = PreparedKernel(lens=(n1, n2), reps=reps, args=(carry, *operands),
+                              retry_lens=retry_lens_for(spec, n1, n2), sandwich=sandwich,
+                              _build=build)
+    prepared.fn_by_len(n1)
+    prepared.fn_by_len(n2)
+    return prepared
+
+
+def run_prepared_inkernel(prepared: PreparedKernel, timer: Timer | None = None,
+                          clock_hz: float | None = None) -> Measurement:
+    """Time a prepared chain: per-step latency from the two lengths. On the
+    card the slope of the SM clock sandwich, converted at ``clock_hz``
+    (default: :func:`sm_clock_hz`, sampled now); a non-positive slope raises
+    ``NoisySlopeError`` (a chain that holds its steps resolves on the SM
+    clock, so no widened retry). On the CPU :meth:`Timer.slope` around the
+    plain chain, with its widened retry."""
+    timer = timer or Timer()
+    if prepared.sandwich:
+        hz = clock_hz or sm_clock_hz(timer.device)
+        return sandwich_slope(
+            lambda n: functools.partial(prepared.fn_by_len(n), *prepared.args),
+            *prepared.lens, clock_hz=hz, reps=prepared.reps or 5,
+            warmup=max(timer.warmup, 1))
+    return timer.slope(prepared.fn_by_len, *prepared.lens, *prepared.args,
+                       reps=prepared.reps, retry_lens=prepared.retry_lens)
+
+
+def measure_inkernel_full(spec: OpSpec, lens: tuple[int, int] = INKERNEL_LENS,
+                          shape: tuple[int, int] | None = None,
+                          timer: Timer | None = None,
+                          reps: int | None = None,
+                          clock_hz: float | None = None) -> Measurement:
+    """Per-step in-kernel latency of ``spec`` on the timer's device, with
+    dispersion: the serial form of
+    ``run_prepared_inkernel(prepare_inkernel(...))``."""
+    timer = timer or Timer()
+    return run_prepared_inkernel(
+        prepare_inkernel(spec, lens, shape, device=timer.device, reps=reps), timer,
+        clock_hz=clock_hz)

@@ -17,12 +17,13 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-KERNELS = ("alu_chain", "op_chain", "chase", "rmsnorm", "flash_attention",
-           "flash_decode", "mamba_scan")
+KERNELS = ("alu_chain", "op_chain", "op_chain_timed", "chase", "rmsnorm",
+           "flash_attention", "flash_decode", "mamba_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -50,22 +51,35 @@ def build_dir() -> Path:
 
 def build() -> Path:
     """Compile every kernel library (in parallel) unless this build exists;
-    returns the build directory. ``build.log`` there keeps nvcc's output,
-    ptxas's register and spill report included."""
+    returns the build directory. ``build.log`` there keeps each nvcc's
+    output, ptxas's register and spill report included, and the seconds
+    from the start of the build until that nvcc ended."""
     final = build_dir()
     if all((final / f"lib{k}.so").exists() for k in KERNELS):
         return final
     final.parent.mkdir(parents=True, exist_ok=True)
     tmp = Path(tempfile.mkdtemp(prefix=final.name + ".tmp-", dir=final.parent))
     nvcc = _nvcc()
+    t0 = time.perf_counter()
     procs = {k: subprocess.Popen(
         [nvcc, *NVCC_FLAGS, "-o", str(tmp / f"lib{k}.so"), str(CSRC / f"{k}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for k in KERNELS}
+    ended: dict[str, tuple[str, float]] = {}
+
+    def wait(k: str) -> None:  # a thread per nvcc drains its pipe and notes its end
+        out, _ = procs[k].communicate()
+        ended[k] = (out, time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=wait, args=(k,)) for k in KERNELS]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
     log, failed = [], []
     for k, p in procs.items():
-        out, _ = p.communicate()
-        log.append(f"== {k}.cu (rc {p.returncode})\n{out}")
+        out, seconds = ended[k]
+        log.append(f"== {k}.cu (rc {p.returncode}, {seconds:.1f} s)\n{out}")
         if p.returncode:
             failed.append(k)
     (tmp / "build.log").write_text("\n".join(log))

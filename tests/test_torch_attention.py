@@ -163,7 +163,8 @@ def test_designs_follow_the_dtype():
                                                 "float32": "3xtf32 mma.sync"}
     for name in _build.KERNELS:
         designs = SMOKE.designs(name)
-        assert designs and set(designs) <= {"float32", "bfloat16", "int32", "uint32"}, name
+        assert designs and set(designs) <= {"float32", "bfloat16", "float16", "int32",
+                                            "uint32"}, name
 
 
 def test_wrapper_on_cpu_tensors_runs_the_plain_version_in_bf16():

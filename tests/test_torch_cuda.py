@@ -5,7 +5,10 @@ Every test here is marked ``cuda`` and skips where no card is visible. The
 file imports neither jax nor the JAX package, so on a machine without jax it
 runs with ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
 
-Tolerances: op_chain and chase bit-exact; alu_chain rtol 1e-5 (its fma step
+Tolerances: op_chain and chase bit-exact (a NaN matching any NaN, a zero's
+sign counted), but for the in-kernel rows whose
+step is a transcendental or reciprocal function (sin, cos, lg2, ex2, tanh,
+rsqrt, rcp), within 2 units in the last place; alu_chain rtol 1e-5 (its fma step
 rounds once in the kernel, twice in the plain version; its rsqrt and exp
 steps differ by an ulp or two; every step contracts an error). The fused
 kernels K4-K7 are held element by element to ``tol * (|want| + rms(want's
@@ -21,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import inkernel
 from repro_torch.api import Plan, Session
 from repro_torch.api.cli import main as cli_main
 from repro_torch.core import measure, membench
@@ -33,12 +37,19 @@ from repro_torch.kernels.flash_attention import (HEAD_DIMS, flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
 from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_plain
-from repro_torch.kernels.opchain import op_chain, op_chain_plain
+from repro_torch.kernels.opchain import op_chain, op_chain_plain, op_chain_timed
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
 
 pytestmark = pytest.mark.cuda
 ALU_RTOL = 1e-5
 ROW_TOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 2.0 ** -13}
+ULPS = 2
+ULP_ROWS = ("sin", "cos", "lg2", "ex2", "tanh", "rsqrt", "rcp")
+INT_STEPS = [s for s, (dtype, _, _) in opchain.STEPS.items() if not dtype.is_floating_point]
+# the float rows held bit for bit: all but the ulp-bounded ones
+EXACT_FLOAT_STEPS = [s for s, (dtype, _, _) in opchain.STEPS.items()
+                     if dtype.is_floating_point and s not in ULP_ROWS]
+SPECIALS = (float("nan"), 0.0, -0.0, float("inf"), float("-inf"))
 
 
 @pytest.fixture
@@ -91,13 +102,15 @@ def test_alu_chain_kernel_matches_plain(dev, op, n):
 
 
 @pytest.mark.parametrize("shape", [(), (8, 128), (3, 1000)])
-@pytest.mark.parametrize("step", list(opchain.STEPS))
+@pytest.mark.parametrize("step", INT_STEPS)
 def test_op_chain_kernel_bit_exact(dev, step, shape):
     dtype, n_ops, _ = opchain.STEPS[step]
     rng = np.random.RandomState(1)
     x, *ops = (torch.from_numpy(_draw(rng, dtype, shape)) for _ in range(1 + n_ops))
     if step in opchain.DIVIDES:  # a divisor of 0 has no defined quotient
         ops[0] = ops[0] | 1
+        if dtype == torch.int32:  # nor has INT_MIN / -1
+            ops[0] = ops[0] & 0x7FFFFFFF
     before = op_chain.launches
     lens = (0, 1, 45, 64, 512)  # 45: 32 steps in the loop, 13 in the remainder
     for unroll in opchain.UNROLLS:
@@ -108,6 +121,143 @@ def test_op_chain_kernel_bit_exact(dev, step, shape):
             assert torch.equal(got.cpu(), op_chain_plain(x, *ops, step=step, n=n)), \
                 (n, unroll)
     assert op_chain.launches == before + len(lens) * len(opchain.UNROLLS)
+
+
+def _ulps(got: torch.Tensor, want: torch.Tensor) -> int:
+    """Units in the last place between two float tensors of one sign."""
+    ints = {2: torch.int16, 4: torch.int32}[want.element_size()]
+    return int((got.view(ints).long() - want.view(ints).long()).abs().max())
+
+
+@pytest.mark.parametrize("name", [s.name for s in inkernel.supported_specs()])
+def test_op_chain_inkernel_rows_match_plain_in_both_forms(dev, name):
+    """Each of the 58 in-kernel rows on its tile and inputs: the timed form
+    at the inkernel plan's lengths, every thread's cycles positive, and the
+    loop form at an odd n, against op_chain_plain."""
+    spec = spec_by_name(name)
+    carry, ops = inkernel.tiles(spec)
+    args = (carry.to(dev), *(o.to(dev) for o in ops))
+    before = op_chain.launches
+    runs = [(n, op_chain_timed(*args, step=name, n=n)) for n in opchain.TIMED_LENS]
+    runs += [(37, (op_chain(*args, step=name, n=37, unroll=u), None)) for u in opchain.UNROLLS]
+    torch.cuda.synchronize()
+    assert op_chain.launches == before + len(runs)
+    for n, (got, cycles) in runs:
+        want = op_chain_plain(carry, *ops, step=name, n=n)
+        got = got.cpu()
+        assert got.dtype == want.dtype and got.shape == want.shape == carry.shape
+        if name in ULP_ROWS:
+            assert _ulps(got, want) <= ULPS, n
+        else:
+            assert torch.equal(got, want), n
+        if cycles is not None:
+            assert cycles.dtype == torch.int64 and bool((cycles > 0).all()), n
+
+
+def _with_specials(rng, dtype, shape, dev, scale=4.0):
+    """Random values of ``dtype`` with NaN, +-0 and +-inf in a quarter of
+    the elements."""
+    vals = rng.standard_normal(shape) * scale
+    special = rng.random_sample(shape) < 0.25
+    vals[special] = rng.choice(SPECIALS, int(special.sum()))
+    return torch.from_numpy(vals.astype(np.float32)).to(dtype).to(dev)
+
+
+def _same_bits_or_both_nan(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Bit for bit (the sign of a zero counts); a NaN matches any NaN."""
+    ints = {2: torch.int16, 4: torch.int32}[want.element_size()]
+    both_nan = got.isnan() & want.isnan()
+    return bool((both_nan | (got.view(ints) == want.view(ints))).all())
+
+
+@pytest.mark.parametrize("step", EXACT_FLOAT_STEPS)
+def test_op_chain_float_steps_carry_nan_and_signed_zero(dev, step):
+    """Each float row that is held bit for bit, on random inputs with NaN,
+    +-0 and +-inf among them, in both forms, against op_chain_plain on the
+    card: a NaN goes through every step (min and max too), and every other
+    value, a zero's sign included, is the plain version's. fma.float32's a
+    is a power of two or a special: the kernel rounds x*a + b once (FFMA),
+    the registry's step twice, and the two agree where the product is exact
+    (as on the row's own inputs)."""
+    dtype, n_ops, _ = opchain.STEPS[step]
+    rng = np.random.RandomState(2)
+    shape = inkernel.default_tile(str(dtype).removeprefix("torch."))
+    x, *ops = (_with_specials(rng, dtype, shape, dev) for _ in range(1 + n_ops))
+    if step == "fma.float32":
+        ops[0] = torch.from_numpy(rng.choice((0.5, 2.0, -0.5, -2.0) + SPECIALS, shape)
+                                  .astype(np.float32)).to(dev)
+    before = op_chain.launches
+    for n in (1, 8, 37, 64):  # straight-line in the timed form at 8 and 64
+        want = op_chain_plain(x, *ops, step=step, n=n)
+        got = {f"unroll {u}": op_chain(x, *ops, step=step, n=n, unroll=u)
+               for u in opchain.UNROLLS}
+        got["timed"] = op_chain_timed(x, *ops, step=step, n=n)[0]
+        for form, g in got.items():
+            assert _same_bits_or_both_nan(g, want), (form, n)
+    assert op_chain.launches == before + 4 * (len(opchain.UNROLLS) + 1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_op_chain_min_max_follow_jnp_on_nan_and_signed_zero(dev, dtype):
+    """One step of min and max where fminf-style instructions part from
+    jnp.minimum / jnp.maximum: a NaN operand gives NaN, and -0 is below +0
+    in either order (min(+0, -0) == -0, max(-0, +0) == +0). b is -0 for min
+    and +0 for max, so the step's add or subtract keeps the zero's sign."""
+    nan = float("nan")
+    t = lambda *v: torch.tensor(v, dtype=getattr(torch, dtype), device=dev)  # noqa: E731
+    x, a = t(nan, 1.0, nan, -0.0, 0.0, 2.0), t(1.0, nan, nan, 0.0, -0.0, 3.0)
+    cases = {"min": (-0.0, t(nan, nan, nan, -0.0, -0.0, 2.0)),
+             "max": (0.0, t(nan, nan, nan, 0.0, 0.0, 3.0))}
+    for op, (b, want) in cases.items():
+        b = torch.full_like(x, b)
+        step = f"{op}.{dtype}"
+        got = {f"unroll {u}": op_chain(x, a, b, step=step, n=1, unroll=u)
+               for u in opchain.UNROLLS}
+        got["timed"] = op_chain_timed(x, a, b, step=step, n=8)[0]  # 8 steps: a fixed point
+        for form, g in got.items():
+            assert _same_bits_or_both_nan(g.cpu(), want.cpu()), (step, form, g)
+
+
+def test_op_chain_refuses_unknown_step_or_operand_count(dev):
+    carry, ops = inkernel.tiles(spec_by_name("add"), device=dev)
+    before = op_chain.launches
+    for fn in (op_chain, op_chain_timed):
+        with pytest.raises(ValueError, match="step must be one of"):
+            fn(carry, *ops, step="add.int128", n=8)
+        with pytest.raises(ValueError, match="takes 2 operand"):
+            fn(carry, ops[0], step="add", n=8)
+        with pytest.raises(TypeError, match="int32"):
+            fn(carry.float(), *(o.float() for o in ops), step="add", n=8)
+    assert op_chain.launches == before
+
+
+def test_inkernel_rows_on_the_sm_clock_sandwich(dev, tmp_path):
+    """A few rows of the inkernel plan on the card: each timed by K2's clock
+    sandwich, its cycles SM cycles at the session's clock."""
+    session = Session(db=str(tmp_path / "db.json"), device=dev,
+                      timer=Timer(warmup=1, reps=5, device=dev))
+    before = op_chain.launches
+    result = session.run(Plan.inkernel(ops=("add", "fma.bfloat16", "sin", "popc"),
+                                       dispatch_pair=False))
+    assert not result.failed, [r.failure for r in result.failed]
+    assert op_chain.launches > before
+    hz = session.clock_hz()
+    for rec in result.records():
+        assert rec.op.startswith("inkernel.") and rec.latency_ns > 0
+        assert f"clock=sm_clock64@{hz / 1e6:.0f}" in rec.notes
+        assert rec.cycles == pytest.approx(rec.latency_ns * hz / 1e9)
+
+
+def test_table2_row_cycles_count_the_sm_clock(dev, tmp_path):
+    """On the card every row's cycles count the SM clock, sampled once a
+    session: a table2 row timed by events too."""
+    session = Session(db=str(tmp_path / "db.json"), device=dev,
+                      timer=Timer(warmup=1, reps=5, device=dev))
+    hz = session.clock_hz()
+    assert hz == session.clock_hz() and hz == pytest.approx(sm_clock_hz(dev), rel=0.05)
+    (rec,) = session.run(Plan.instructions(ops=("add",), opt_levels=("O0",))).records()
+    assert rec.cycles == pytest.approx(rec.latency_ns * hz / 1e9)
+    assert f"cycles_at=sm_clock64@{hz / 1e6:.0f} clock=events" in rec.notes
 
 
 @pytest.mark.parametrize("step", ["div.u.regular", "div.u.irregular", "div.u.runtime",
