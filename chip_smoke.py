@@ -34,8 +34,12 @@ Phases, each of which must pass:
    chain (nothing that grows with n before the first read, no branch
    between the reads but a step's own), and what a step runs, the SASS
    between the reads at n 64 less that at n 8 over 56, printed, the rows
-   under one instruction a step named as folded; and ptxas must report 0
-   spill bytes for each instance of K5 float32 and of K7;
+   under one instruction a step named as folded; K3's timed form, each
+   straight-line instance (smem and global, 64 and 192 steps): the clock
+   reads bracket the chase with no branch between them, and a step ((192 -
+   64) / 128) is one LDS or LDG and at most one address instruction,
+   printed; and ptxas must report 0 spill bytes for each instance of K5
+   float32 and of K7;
 2. hold each kernel against its plain PyTorch version on the card: K1-K3 at
    the quick plan's shapes and one larger shape (alu_chain within rtol
    1e-5, in both its forms, the timed one's cycles all positive; op_chain
@@ -45,7 +49,11 @@ Phases, each of which must pass:
    and each of the 58 in-kernel rows on its tile and inputs in the timed
    form at n 8 and 64 (every thread's cycles positive) and in the loop
    form at n 37, bit-exact but for the transcendental and reciprocal rows,
-   within 2 ulps); K4-K7 at the fused plan's unit
+   within 2 ulps; chase in both forms on both paths, on rings of 4 KiB,
+   64 KiB, 227 KiB (the smem budget) and 2 MiB at 64, 192 and 37 steps,
+   with and without a warm lap, bit-exact, every timed launch's cycles
+   positive, a carried start continuing, and a forced smem ring above the
+   budget raising); K4-K7 at the fused plan's unit
    workloads and at the widths of Jamba-v0.1 52B (d_model 4096, 32 heads,
    8 KV heads, head dim 128, Mamba Dm 8192, N 16, chunk 64), every element
    within ``tol * (|want| + rms(want's row))``, tol 2^-7 in bfloat16 (one
@@ -88,12 +96,26 @@ Phases, each of which must pass:
    recorded must be a cache hit; K2 must be launched and the pairing
    table printed. It prints the in-kernel Table II: each row's ns and SM
    cycles a step beside its dispatch twin, and what a step runs;
-6. the same for ``characterize --plan fused``: it must launch K4-K7 and
+6. run ``characterize --plan memory --table`` through the CLI on the same
+   DB, the launch counts set to 0 just before and read just after: all 14
+   rungs recorded on events, each stating the level rule its size asks
+   for (``warm=`` a lap inside each launch below the L1's 256 KB,
+   ``carry=1`` above), and K3 launched; it prints the ladder (ns and SM
+   cycles a load, cold_ns, warm, carry), ``detect_levels``' levels and
+   ``bandwidth_probe``'s GB/s;
+7. run ``characterize --plan memory-inkernel --table`` on that DB, the
+   counts set to 0 just before and read just after: the 7
+   ``inkernel.mem.<N>`` rungs recorded on K3's SM clock sandwich, from
+   shared memory at 64 KiB and global memory above; the 6 host twins the
+   memory plan recorded cache hits, the 64 MiB twin measured; K3 launched
+   in its timed form on both paths; the pairing table printed. It prints
+   the in-kernel ladder beside its host twins, and its levels;
+8. the same for ``characterize --plan fused``: it must launch K4-K7 and
    measure the flash_attention, flash_decode and mamba_scan rows; the
    rmsnorm row may end as a NoisySlopeError failure (its row blocks run in
    parallel, so its slope is near the clock's resolution), and the script
    prints which;
-7. time each kernel, its plain version, its bound (the larger of bytes
+9. time each kernel, its plain version, its bound (the larger of bytes
    and operations; K5 float32's operations at the least of float32 FMAs,
    3xTF32 and 3xBF16 on the tensor cores, the choice printed; K7's at its
    float32 operations, its exponentials on the SFU alone printed beside
@@ -102,17 +124,22 @@ Phases, each of which must pass:
    where one PyTorch call computes the same function, that call, at the
    shapes the main
    paths give it (K1 in its timed form, as the quick plan runs it on the
-   card; K4-K7 also at the Jamba shapes, K5 in both dtypes, K6 also at the
+   card; K3 in both forms, the timed one at the memory-inkernel plan's
+   64 MiB rung, its launches also by form and path; K4-K7 also at the
+   Jamba shapes, K5 in both dtypes, K6 also at the
    batch-1 cache of 32768 keys, and there at g = 1, 2, 4 and 8 query heads
    a KV head, a datum on the share of its arithmetic; and the device time
    of K6's split and combine passes from torch.profiler); count
    non-positive slopes of the host clock, of CUDA events and of the SM clock sandwich
    over repeated trials (the sandwich, which times the quick plan's
    kernel.alu_chain.fma row and the inkernel plan's rows, must have none,
-   for K1's fma chain and for K2's inkernel.add), print the calibrated SM
-   clock, and time op_chain's loop: each step's time with 1 and with 32
-   steps to an iteration;
-8. print the ``{"kernels": [...]}`` line (each kernel with the design each
+   for K1's fma chain and for K2's inkernel.add, and for K3's chase at the
+   memory-inkernel plan's 64 KiB (smem) and 64 MiB rungs, beside the slope
+   from the medians), the 64 MiB rung's loads against the same loads after
+   256 MiB of other data went through L2 before each launch, print the
+   calibrated SM clock, and time op_chain's loop: each step's time with 1
+   and with 32 steps to an iteration;
+10. print the ``{"kernels": [...]}`` line (each kernel with the design each
    dtype runs), the card's name and power limit, and, last, ``{"ok": true,
    "device": {...}}``.
 
@@ -248,7 +275,8 @@ def check_float_specials(dev: torch.device, rng: np.random.RandomState) -> None:
 def designs(name: str) -> dict[str, str]:
     """The design each dtype of kernel ``name`` (a library of
     ``_build.KERNELS``) runs, from its wrapper module's DESIGNS."""
-    module = {"op_chain": "opchain", "op_chain_timed": "opchain"}.get(name, name)
+    module = {"op_chain": "opchain", "op_chain_timed": "opchain",
+              "chase_timed": "chase"}.get(name, name)
     mod = importlib.import_module(f"repro_torch.kernels.{module}")
     return {str(k).removeprefix("torch."): v for k, v in mod.DESIGNS.items()}
 
@@ -391,8 +419,61 @@ def check_kernels(dev: torch.device) -> dict[str, float]:
             got = chase(ring, start, steps=steps).cpu()
             if not torch.equal(got, chase_plain(ring, start, steps=steps).cpu()):
                 fail(f"chase ws={ws} steps={steps}: differs from the plain version")
-    print("K3 chase: ws 8 KiB, 128 KiB, 2 MiB, 32 MiB x steps (512, 1536) bit-exact")
+    print("K3 chase: ws 8 KiB, 128 KiB, 2 MiB, 32 MiB x steps (512, 1536) bit-exact "
+          "(the path by footprint)")
+    check_chase(dev)
     return err
+
+
+def check_chase(dev: torch.device) -> None:
+    """K3 against chase_plain, bit for bit: both paths (where the ring fits
+    the smem budget) and both forms, on rings of 4 KiB, 64 KiB, 227 KiB (the
+    budget) and 2 MiB, at 64, 192 and 37 steps, with and without a warm lap;
+    the timed form's cycles positive; a start carried through ``out``
+    continues where the last launch stopped; a forced smem ring above the
+    budget and an unknown path raise."""
+    from repro_torch.core.membench import build_ring
+    from repro_torch.kernels.chase import (SMEM_BUDGET_BYTES, chase, chase_plain,
+                                           chase_timed)
+
+    checked = 0
+    for ws in (4096, 1 << 16, SMEM_BUDGET_BYTES, 1 << 21):
+        ring, start = build_ring(ws, device=dev)
+        lap = ring.numel() // 16
+        spaces = ("smem", "global") if ring.numel() * 4 <= SMEM_BUDGET_BYTES else ("global",)
+        for space in spaces:
+            for steps in (64, 192, 37):
+                for warm in (0, lap):
+                    want = chase_plain(ring, start, steps=steps, warm=warm).cpu()
+                    got = chase(ring, start, steps=steps, warm=warm, memory_space=space)
+                    p, cycles = chase_timed(ring, start, steps=steps, warm=warm,
+                                            memory_space=space)
+                    if not (torch.equal(got.cpu(), want) and torch.equal(p.cpu(), want)):
+                        fail(f"chase ws={ws} {space} steps={steps} warm={warm}: "
+                             f"{int(got[0])} / timed {int(p[0])}, plain {int(want[0])}")
+                    if not int(cycles[0]) > 0:
+                        fail(f"chase_timed ws={ws} {space} steps={steps} warm={warm}: "
+                             f"{int(cycles[0])} cycles")
+                    checked += 1
+            pos = start.clone()  # carried: three launches of 37 are one of 111
+            for form in (chase, lambda *a, **k: chase_timed(*a, **k)[0]):
+                for _ in range(3):
+                    form(ring, pos, steps=37, memory_space=space, out=pos)
+            if not torch.equal(pos.cpu(), chase_plain(ring, start, steps=6 * 37).cpu()):
+                fail(f"chase ws={ws} {space}: a carried start does not continue")
+    big, big_start = build_ring(1 << 21, device=dev)
+    for bad, match in (("smem", "does not fit"), ("vmem", "must be one of")):
+        try:
+            chase_timed(big, big_start, steps=64, memory_space=bad)
+        except ValueError as e:
+            if match not in str(e):
+                raise
+        else:
+            fail(f"chase_timed memory_space={bad!r} on a 2 MiB ring did not raise")
+    print(f"K3 chase: {checked} cases (ws 4 KiB, 64 KiB, 227 KiB, 2 MiB x smem where it fits "
+          "and global x steps 64, 192, 37 x warm 0 and a lap), both forms bit-exact, every "
+          "timed launch's cycles positive; a carried start continues; smem above the "
+          "budget and an unknown path raise")
 
 def row_scaled_ratio(got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
     """The largest |got - want| / (tol * (|want| + rms(want's row))), a row
@@ -744,10 +825,9 @@ def run_quick(dev: torch.device, db_path: str) -> dict[str, int]:
     from repro_torch.api.plan import named_plan
     from repro_torch.core.latency_db import LatencyDB, current_environment
 
-    for k in counted():
-        k.launches = 0
+    zero_counts()
     rc = cli_main(["characterize", "--plan", "quick", "--db", db_path, "--table"])
-    launches = {k.__name__: k.launches for k in counted()}
+    launches = read_counts()
     if rc != 0:
         fail(f"characterize --plan quick exited {rc}")
     db = LatencyDB(db_path)
@@ -882,10 +962,9 @@ def run_table2(dev: torch.device, db_path: str, pool) -> dict[str, int]:
     from repro_torch.core import chains, measure
     from repro_torch.core.latency_db import LatencyDB, current_environment
 
-    for k in counted():
-        k.launches = 0
+    zero_counts()
     rc = cli_main(["characterize", "--plan", "table2", "--db", db_path, "--table"])
-    launches = {k.__name__: k.launches for k in counted()}
+    launches = read_counts()
     db = LatencyDB(db_path)
     env = current_environment(dev)
     plan = named_plan("table2")
@@ -967,11 +1046,29 @@ def run_table2(dev: torch.device, db_path: str, pool) -> dict[str, int]:
 
 def counted() -> tuple:
     """The wrappers whose launches a run counts: the seven kernels'
-    (``ops.KERNELS``), and K2's timed form's own count beside K2's, which
-    counts both of its forms."""
+    (``ops.KERNELS``), and K2's and K3's timed forms' own counts beside
+    K2's and K3's, which count both of their forms."""
+    from repro_torch.kernels.chase import chase_timed
     from repro_torch.kernels.ops import KERNELS
     from repro_torch.kernels.opchain import op_chain_timed
-    return KERNELS + (op_chain_timed,)
+    return KERNELS + (op_chain_timed, chase_timed)
+
+
+def zero_counts() -> None:
+    """Set every launch count to 0, K3's by form and path too."""
+    from repro_torch.kernels.chase import chase
+    for k in counted():
+        k.launches = 0
+    chase.launches_by_path.clear()
+
+
+def read_counts() -> dict[str, int]:
+    """Each wrapper's launches since :func:`zero_counts`, and K3's by form
+    and path (``chase/timed/smem``, ...)."""
+    from repro_torch.kernels.chase import chase
+    out = {k.__name__: k.launches for k in counted()}
+    out.update({f"chase/{path}": n for path, n in sorted(chase.launches_by_path.items())})
+    return out
 
 
 def check_cycles(rec) -> None:
@@ -1008,12 +1105,11 @@ def run_inkernel(dev: torch.device, db_path: str,
     before = LatencyDB(db_path)
     recorded = {p.op: before.get(p.key(env)).measured_at for p in twins
                 if p.key(env) in before}
-    for k in counted():
-        k.launches = 0
+    zero_counts()
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = cli_main(["characterize", "--plan", "inkernel", "--db", db_path, "--table"])
-    launches = {k.__name__: k.launches for k in counted()}
+    launches = read_counts()
     out = buf.getvalue()
     print(out, end="")
     db = LatencyDB(db_path)
@@ -1074,8 +1170,147 @@ def run_inkernel(dev: torch.device, db_path: str,
     return launches
 
 
+def rung_fields(rec) -> dict[str, str]:
+    """A memory row's ``key=value`` notes."""
+    from repro_torch.utils import parse_kv_notes
+    return parse_kv_notes(rec.notes)
+
+
+def run_memory(dev: torch.device, db_path: str) -> dict[str, int]:
+    """Phase 6: the memory plan through the CLI with its ``--table``, on the
+    DB of the phases before, the launch counts set to 0 just before and read
+    just after: every one of its 14 rungs must end with a record timed by
+    events that states the level rule (``warm=``, ``carry=``), and K3 must
+    be launched. Prints the ladder (ns and SM cycles a load, cold_ns, warm,
+    carry), ``detect_levels``' levels and the streaming bandwidth."""
+    from repro_torch.api.cli import main as cli_main
+    from repro_torch.api.plan import named_plan
+    from repro_torch.core.latency_db import LatencyDB, current_environment
+    from repro_torch.core.membench import (L1_BYTES, bandwidth_probe, detect_levels,
+                                           mempoint_from_record)
+    from repro_torch.core.timing import Timer
+
+    env = current_environment(dev)
+    plan = named_plan("memory")
+    zero_counts()
+    rc = cli_main(["characterize", "--plan", "memory", "--db", db_path, "--table"])
+    launches = read_counts()
+    if rc != 0:
+        fail(f"characterize --plan memory exited {rc}")
+    db = LatencyDB(db_path)
+    points = []
+    for probe in plan:
+        rec = db.get(probe.key(env))
+        if rec is None:
+            fail(f"no record for {probe.op}")
+        f = rung_fields(rec)
+        if not (math.isfinite(rec.latency_ns) and rec.latency_ns > 0 and "clock=events" in
+                rec.notes and {"warm", "carry", "cold_ns"} <= set(f)):
+            fail(f"bad record {rec}")
+        check_cycles(rec)
+        fits = probe.working_set_bytes < L1_BYTES
+        if (f["carry"] == "1") == fits or (int(f["warm"]) > 0) != fits:
+            fail(f"{probe.op}: warm={f['warm']} carry={f['carry']} is not the level rule")
+        pt = mempoint_from_record(rec)
+        points.append(pt)
+        print(f"memory: {probe.op}: {rec.latency_ns:.3f} ns = {rec.cycles:.1f} SM cycles a "
+              f"load, cold {pt.cold_latency_ns:.3f} ns, warm={f['warm']} carry={f['carry']}")
+    for lv in detect_levels(points):
+        print(f"memory: level {lv['level']}: up to {lv['capacity_bytes_lower_bound']} B, "
+              f"{lv['hit_latency_ns']:.3f} ns (detect_levels, jump 1.6x)")
+    gbs = bandwidth_probe(1 << 28, timer=Timer(warmup=2, reps=10, device=dev))
+    print(f"memory: bandwidth_probe {gbs:.1f} GB/s (one elementwise pass over 256 MiB "
+          "float32, read + write, PyTorch's kernel)")
+    print(f"memory: {len(plan)} rungs recorded; launches {launches}")
+    if launches["chase"] == 0:
+        fail("kernel chase was not launched by the memory run")
+    return launches
+
+
+def run_memory_inkernel(dev: torch.device, db_path: str) -> dict[str, int]:
+    """Phase 7: the memory-inkernel plan through the CLI with its ``--table``
+    on the memory plan's DB, the launch counts set to 0 just before and read
+    just after: its 7 ``inkernel.mem.<N>`` rungs must end with records timed
+    by K3's SM clock sandwich, from shared memory at 64 KiB and global
+    memory above; the 6 host twins the memory plan recorded must be cache
+    hits and the 64 MiB twin measured; K3 must be launched in its timed
+    form on both paths; the pairing table must be printed. Prints the
+    in-kernel ladder beside its host twins, and its levels."""
+    from repro_torch.api.cli import main as cli_main
+    from repro_torch.api.plan import named_plan
+    from repro_torch.core.latency_db import LatencyDB, current_environment
+    from repro_torch.core.membench import chasepoint_from_record, detect_levels
+    from repro_torch.kernels.chase import SMEM_BUDGET_BYTES
+
+    env = current_environment(dev)
+    plan = named_plan("memory-inkernel")
+    rungs = [p for p in plan if p.op.startswith("inkernel.")]
+    twins = [p for p in plan if not p.op.startswith("inkernel.")]
+    before = LatencyDB(db_path)
+    recorded = {p.op: before.get(p.key(env)).measured_at for p in twins if p.key(env) in before}
+    if len(recorded) != 6:
+        fail(f"memory-inkernel: {len(recorded)} host twins in the memory plan's DB, not 6")
+    zero_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["characterize", "--plan", "memory-inkernel", "--db", db_path, "--table"])
+    launches = read_counts()
+    out = buf.getvalue()
+    print(out, end="")
+    if rc != 0:
+        fail(f"characterize --plan memory-inkernel exited {rc}")
+    m = re.search(r"(\d+) measured, (\d+) cached, (\d+) failed", out)
+    if not m or (int(m[1]), int(m[2]), int(m[3])) != (8, 6, 0):
+        fail(f"memory-inkernel: expected 8 measured, 6 cached, 0 failed, got "
+             f"{m[0] if m else out[-300:]}")
+    if "== host vs in-kernel" not in out:
+        fail("characterize --plan memory-inkernel --table printed no pairing table")
+    db = LatencyDB(db_path)
+    points = []
+    for probe in rungs:
+        rec, twin = db.get(probe.key(env)), db.get(probe_twin(probe, twins).key(env))
+        if rec is None or twin is None:
+            fail(f"no record for {probe.op} or its twin")
+        space = "smem" if probe.working_set_bytes <= SMEM_BUDGET_BYTES else "global"
+        f = rung_fields(rec)
+        if not (math.isfinite(rec.latency_ns) and rec.latency_ns > 0
+                and rec.notes.startswith("cuda chase ") and f.get("space") == space
+                and "clock=sm_clock64@" in rec.notes and {"warm", "carry"} <= set(f)):
+            fail(f"bad record {rec}")
+        check_cycles(rec)
+        t = probe_twin(probe, twins)
+        if t.op in recorded and twin.measured_at != recorded[t.op]:
+            fail(f"{t.op}: measured again, not a cache hit of the memory plan's record")
+        points.append(chasepoint_from_record(rec))
+        tf = rung_fields(twin)
+        print(f"memory-inkernel: {probe.op} ({space}): {rec.latency_ns:.3f} ns = "
+              f"{rec.cycles:.1f} SM cycles a load (MAD {rec.mad_ns:.3f} ns), warm={f['warm']} "
+              f"carry={f['carry']}; host twin {twin.latency_ns:.3f} ns = {twin.cycles:.1f} "
+              f"cycles (warm={tf['warm']} carry={tf['carry']}"
+              f"{', cached' if t.op in recorded else ', measured'})")
+    for lv in detect_levels(points):
+        print(f"memory-inkernel: level {lv['level']}: up to {lv['capacity_bytes_lower_bound']}"
+              f" B, {lv['hit_latency_ns']:.3f} ns (detect_levels, jump 1.6x)")
+    ns = {p.working_set_bytes: p.latency_ns for p in points}
+    l2 = [ns[w] for w in (1 << 20, 4 << 20, 16 << 20)]
+    print(f"memory-inkernel: the smem rung below every L2 rung (1-16 MiB): "
+          f"{ns[64 << 10] < min(l2)}; the 64 MiB rung above the 16 MiB one: "
+          f"{ns[64 << 20] > ns[16 << 20]}")
+    print(f"memory-inkernel: {len(plan)} probes, {len(recorded)} host twins cached from the "
+          f"memory plan; launches {launches}")
+    for path in ("chase/timed/smem", "chase/timed/global"):
+        if launches.get(path, 0) == 0:
+            fail(f"K3 ({path}) was not launched by the memory-inkernel run")
+    return launches
+
+
+def probe_twin(probe, twins):
+    """The host chase at an in-kernel rung's working set."""
+    return next(t for t in twins if t.working_set_bytes == probe.working_set_bytes)
+
+
 def run_fused(dev: torch.device) -> dict[str, int]:
-    """Phase 4: the fused plan through the CLI; returns each kernel's
+    """Phase 8: the fused plan through the CLI; returns each kernel's
     launches during that run."""
     from repro_torch.api.cli import main as cli_main
     from repro_torch.api.plan import named_plan
@@ -1083,10 +1318,9 @@ def run_fused(dev: torch.device) -> dict[str, int]:
 
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         db_path = str(Path(tmp) / "fused_db.json")
-        for k in counted():
-            k.launches = 0
+        zero_counts()
         rc = cli_main(["characterize", "--plan", "fused", "--db", db_path, "--table"])
-        launches = {k.__name__: k.launches for k in counted()}
+        launches = read_counts()
         db = LatencyDB(db_path)
     env = current_environment(dev)
     failures = {f.op: f for f in db.failures()}
@@ -1356,8 +1590,8 @@ def decode_passes(cases: dict, reps: int = 20) -> dict[str, dict[str, float]]:
     return out
 
 
-def time_kernels(dev: torch.device, err: dict, *plan_launches: dict) -> list[dict]:
-    """Phase 6: each kernel at the largest call the quick plan makes of it:
+def time_kernels(dev: torch.device, err: dict, *plan_launches: dict, big) -> list[dict]:
+    """Phase 9: each kernel at the largest call the quick plan makes of it:
     the kernel's time on the card (CUDA events behind a lead, as the probes
     time), the plain version's wall time to completion (it may wait for the
     card inside, as the chase's host loop does), and the bound; its
@@ -1365,12 +1599,13 @@ def time_kernels(dev: torch.device, err: dict, *plan_launches: dict) -> list[dic
     K2's entry also holds its timed form's (``timed_form``), at the inkernel
     plan's call: the add row's (8, 128) tile at n 64; its ``launches`` there
     are the timed form's alone, K2's own those of both forms."""
-    launches = {k: sum(p.get(k, 0) for p in plan_launches) for k in plan_launches[0]}
+    launches = {k: sum(p.get(k, 0) for p in plan_launches)
+                for k in sorted(set().union(*plan_launches))}
     from repro_torch.core.chains import KERNEL_CHAIN_UNROLL
     from repro_torch.core.membench import build_ring
     from repro_torch.core.timing import Timer
     from repro_torch.kernels.alu_chain import alu_chain_plain, alu_chain_timed
-    from repro_torch.kernels.chase import chase, chase_plain
+    from repro_torch.kernels.chase import chase, chase_plain, chase_timed
     from repro_torch import inkernel
     from repro_torch.core.chains import spec_by_name
     from repro_torch.kernels.opchain import op_chain, op_chain_plain, op_chain_timed
@@ -1381,6 +1616,8 @@ def time_kernels(dev: torch.device, err: dict, *plan_launches: dict) -> list[dic
     c = torch.tensor(0xF0F0F0F0, dtype=torch.uint32, device=dev)
     p = torch.tensor(0xA5A5A5A5, dtype=torch.uint32, device=dev)
     ring, start = build_ring(1 << 21, device=dev)
+    pos = start.clone()
+    ring64, pos64 = big.args
     rows = [
         # name, source, replaces, kernel call, plain call, bytes, ops
         ("alu_chain", "src/repro_torch/csrc/alu_chain.cu",
@@ -1403,11 +1640,17 @@ def time_kernels(dev: torch.device, err: dict, *plan_launches: dict) -> list[dic
          "add, tile (8, 128) int32, n=64, timed form"),
         ("chase", "src/repro_torch/csrc/chase.cu",
          "src/repro/kernels/chase.py:119",
-         lambda: chase(ring, start, steps=1536),
-         lambda: chase_plain(ring, start, steps=1536),
+         lambda: chase(ring, pos, steps=1536, memory_space="global", out=pos),
+         lambda: chase_plain(ring, pos, steps=1536),
          # one 4-byte word per step, all on distinct lines (the 2 MiB ring has
          # 32768 live slots), plus start and the result
-         1536 * 4 + 4 + 4, 0, "ring 2 MiB (32768 lines), steps=1536"),
+         1536 * 4 + 4 + 4, 0, "ring 2 MiB (32768 lines), steps=1536, global, start carried"),
+        ("chase_timed", "src/repro_torch/csrc/chase.cu",
+         "src/repro/kernels/chase.py:119",
+         lambda: chase_timed(ring64, pos64, steps=192, memory_space="global", out=pos64),
+         lambda: chase_plain(ring64, pos64, steps=192, timed=True),
+         192 * 4 + 4 + 4 + 8, 0,  # + int64 cycles
+         "ring 64 MiB (1048576 lines), steps=192, global, start carried, timed form"),
     ]
     out = []
     timer = Timer(warmup=3, reps=50, device=dev)
@@ -1429,10 +1672,18 @@ def time_kernels(dev: torch.device, err: dict, *plan_launches: dict) -> list[dic
     out.remove(timed)  # K2's timed form goes inside K2's entry
     del timed["replaces"], timed["max_abs_err"]  # K2's, for both forms
     next(k for k in out if k["name"] == "op_chain")["timed_form"] = timed
+    (timed,) = [k for k in out if k["name"] == "chase_timed"]
+    out.remove(timed)  # and K3's inside K3's
+    del timed["replaces"], timed["max_abs_err"]
+    k3 = next(k for k in out if k["name"] == "chase")
+    k3["timed_form"] = timed
+    k3["launches_by_path"] = {k.removeprefix("chase/"): n for k, n in launches.items()
+                              if k.startswith("chase/")}
+    print(f"chase launches by form and path on the main path: {k3['launches_by_path']}")
     return out
 
 
-def clock_study(dev: torch.device, trials: int = 20, reps: int = 5) -> None:
+def clock_study(dev: torch.device, trials: int = 20, reps: int = 5, *, rungs: dict) -> None:
     """How often a two-length slope comes out non-positive, min over ``reps``
     per length as core.timing's slope takes it, with three clocks: the host
     clock (perf_counter_ns around the call plus a synchronize), bare CUDA
@@ -1509,6 +1760,57 @@ def clock_study(dev: torch.device, trials: int = 20, reps: int = 5) -> None:
               f"ns/step median {med / hz * 1e9:.3f}")
         if bad:
             fail(f"the SM clock sandwich gave {bad} of {trials} non-positive slopes for {label}")
+    chase_sandwiches(hz, trials, reps, rungs)
+
+
+def chase_sandwiches(hz: float, trials: int, reps: int, rungs: dict) -> None:
+    """K3's clock sandwich at the memory-inkernel plan's lengths for each of
+    ``rungs`` (label -> its prepared rung, as the plan runs it: a lap inside
+    each launch, or a lapped ring whose start is carried): non-positive
+    slopes in ``trials`` trials (must be 0), each trial's slope from the
+    minimum over ``reps`` launches a length, as ``sandwich_slope`` takes
+    it, beside the slope from their medians (the minimum favours a launch
+    whose loads hit). Then the 64 MiB rung's loads as the plan times them
+    against the same loads after 256 MiB of other data has gone through L2
+    before each launch: what of the 64 MiB ring L2 still holds."""
+    for label, prepared in rungs.items():
+        n1, n2 = prepared.lens
+        cycles = lambda n: float(prepared.fn_by_len(n)(*prepared.args)[0])  # noqa: E731
+        cycles(n1), cycles(n2)  # warm
+        by_min, by_median = [], []
+        for _ in range(trials):
+            c1 = [cycles(n1) for _ in range(reps)]
+            c2 = [cycles(n2) for _ in range(reps)]
+            by_min.append((min(c2) - min(c1)) / (n2 - n1))
+            by_median.append((np.median(c2) - np.median(c1)) / (n2 - n1))
+        bad = sum(c <= 0 for c in by_min)
+        q1, med, q3 = np.percentile(by_min, (25, 50, 75))
+        print(f"clock sm_clock64 {label} ({n1}, {n2}): {bad} of {trials} slopes non-positive; "
+              f"cycles/load q1 {q1:.3f} median {med:.3f} q3 {q3:.3f} (from the medians: "
+              f"{np.median(by_median):.3f}); ns/load median {med / hz * 1e9:.3f}")
+        if bad:
+            fail(f"the SM clock sandwich gave {bad} of {trials} non-positive slopes for {label}")
+    big = rungs["inkernel.mem.67108864"]
+    evict = torch.empty(256 << 20, dtype=torch.uint8, device=big.args[0].device)
+    for flush in (False, True):
+        per = {}
+        for n in big.lens:
+            xs = []
+            for _ in range(30):
+                if flush:
+                    evict.add_(1)  # reads and writes 256 MiB through L2
+                xs.append(float(big.fn_by_len(n)(*big.args)[0]))
+            per[n] = np.array(xs)
+        n1, n2 = big.lens
+        slope_min = (per[n2].min() - per[n1].min()) / (n2 - n1)
+        slope_med = (np.median(per[n2]) - np.median(per[n1])) / (n2 - n1)
+        each = per[n2] / n2
+        how = "256 MiB through L2 before each launch" if flush else "as the plan runs it"
+        print(f"L2 residency, 64 MiB ring, {how}: "
+              f"{slope_med:.1f} cycles a load from medians, {slope_min:.1f} from minima "
+              f"({slope_med / hz * 1e9:.1f} / {slope_min / hz * 1e9:.1f} ns); a launch of "
+              f"{n2}: {each.min():.1f} / {np.median(each):.1f} / {each.max():.1f} cycles a load "
+              "(min / median / max of 30)")
 
 
 def sass_functions(binary: Path) -> dict[str, list[str]]:
@@ -1639,6 +1941,7 @@ def sass_checks(build: Path) -> dict[str, tuple[float, dict]]:
           "the instruction before it: "
           + "; ".join(f"{i}: {text[i - 1]} | {text[i]}" for i in clock))
     k2_sass_checks(functions, mnemonics)
+    k3_timed_sass(functions, mnemonics)
     return k2_timed_sass(functions, mnemonics)
 
 
@@ -1772,6 +2075,50 @@ def k2_timed_sass(functions, mnemonics) -> dict[str, tuple[float, dict]]:
     return out
 
 
+K3_LOADS = {"smem": "LDS", "global": "LDG"}
+
+
+def k3_timed_sass(functions, mnemonics) -> None:
+    """K3's timed form, each straight-line instance (smem and global, 64 and
+    192 steps): the clock reads bracket the chase (nothing that grows with
+    the steps before the first read, no branch between the reads, as many
+    loads between them as steps), and a step, the mnemonics between the
+    reads at 192 less those at 64 over 128, is one load (LDS or LDG) and at
+    most one address instruction."""
+    from collections import Counter
+
+    lib = functions("chase")
+    for smem, space in ((1, "smem"), (0, "global")):
+        seen = {}
+        for n in (64, 192):
+            (body,) = [b for name, b in lib.items()
+                       if f"chase_kernelILb{smem}ELb1ELi{n}E" in name]
+            ops = mnemonics(body)
+            reads = [i for i, ln in enumerate(body) if "SR_CLOCK" in ln]
+            if not reads or len(reads) % 2:
+                fail(f"K3 timed {space} n {n}: clock reads at {reads} in its SASS")
+            lo, hi = reads[len(reads) // 2 - 1], reads[len(reads) // 2]
+            between = Counter(ops[lo + 1:hi])
+            loads = sum(c for m, c in between.items() if m.startswith(K3_LOADS[space]))
+            branches = sum(c for m, c in between.items() if m.split(".")[0] in BRANCHES)
+            if loads != n or branches:
+                fail(f"K3 timed {space} n {n}: {loads} loads and {branches} branches between "
+                     f"the clock reads (at {reads})")
+            seen[n] = (reads, between)
+        per = {m: (seen[192][1][m] - seen[64][1][m]) / 128
+               for m in seen[192][1] | seen[64][1]}
+        per = {m: c for m, c in sorted(per.items(), key=lambda kv: -kv[1]) if c}
+        load = sum(c for m, c in per.items() if m.startswith(K3_LOADS[space]))
+        other = sum(c for m, c in per.items() if not m.startswith(K3_LOADS[space]))
+        (r64, _), (r192, _) = seen[64], seen[192]
+        print(f"sass: K3 timed {space}: reads at {r64} / {r192} (n 64 / 192), no branch "
+              f"between; a step runs {sum(per.values()):.2f} instructions: "
+              + ", ".join(f"{m} {c:.2f}" for m, c in per.items()))
+        if r192[0] - r64[0] >= 1 or load != 1.0 or other > 1.0:
+            fail(f"K3 timed {space}: a step runs {per} (first read at {r64[0]} / {r192[0]}); "
+                 "it should be one load and at most one address instruction")
+
+
 def spill_checks(build: Path) -> None:
     """ptxas must report 0 spill bytes for every instance of K5's float32
     design and of K7 (build.log keeps ptxas -v's lines)."""
@@ -1822,6 +2169,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 1
+    from repro_torch import inkernel
     from repro_torch.api.plan import named_plan
     from repro_torch.api.session import CompilePool, compile_workers_for, warm_tasks
     from repro_torch.kernels import _build
@@ -1872,13 +2220,26 @@ def main() -> int:
         phase("inkernel", t0)
 
         t0 = time.perf_counter()
+        memory_launches = run_memory(dev, db_path)
+        phase("memory", t0)
+
+        t0 = time.perf_counter()
+        memory_inkernel_launches = run_memory_inkernel(dev, db_path)
+        phase("memory-inkernel", t0)
+
+        t0 = time.perf_counter()
         fused_launches = run_fused(dev)
         phase("fused", t0)
 
         t0 = time.perf_counter()
-        kernels = time_kernels(dev, err, launches, table2_launches, inkernel_launches)
+        rungs = {"inkernel.mem.65536 (smem)": inkernel.prepare_chase(64 << 10, device=dev),
+                 "inkernel.mem.67108864": inkernel.prepare_chase(64 << 20, device=dev)}
+        rungs["inkernel.mem.67108864"].lap()
+        kernels = time_kernels(dev, err, launches, table2_launches, inkernel_launches,
+                               memory_launches, memory_inkernel_launches,
+                               big=rungs["inkernel.mem.67108864"])
         kernels += time_fused(dev, fused_err, jamba, cases, fused_launches)
-        clock_study(dev)
+        clock_study(dev, rungs=rungs)
         loop_study(dev)
         phase("timing", t0)
     phase("total", t_all)

@@ -6,18 +6,19 @@
   fingerprint and the LatencyDB-backed cache; runs plans incrementally.
 * :class:`ResultSet` — per-probe outcomes plus report helpers.
 
-CLI: ``python -m repro_torch characterize --plan quick|table2|inkernel|fused
---db PATH [--table] [--device cuda|cpu]``.
+CLI: ``python -m repro_torch characterize --plan
+quick|table2|memory|inkernel|memory-inkernel|fused --db PATH [--table]
+[--device cuda|cpu]``.
 """
 from repro_torch.api.plan import PLAN_NAMES, PORTED_PLANS, QUICK_OPS, Plan, named_plan
 from repro_torch.api.probes import (ClockOverheadProbe, FusedKernelProbe,
                                     InstructionProbe, KernelChainProbe, KernelProbe,
-                                    MemoryProbe, Probe, ProbeContext)
+                                    MemoryChaseProbe, MemoryProbe, Probe, ProbeContext)
 from repro_torch.api.session import ProbeResult, ResultSet, Session
 
 __all__ = [
     "PLAN_NAMES", "PORTED_PLANS", "QUICK_OPS", "Plan", "named_plan",
     "ClockOverheadProbe", "FusedKernelProbe", "InstructionProbe", "KernelChainProbe",
-    "KernelProbe", "MemoryProbe",
+    "KernelProbe", "MemoryChaseProbe", "MemoryProbe",
     "Probe", "ProbeContext", "ProbeResult", "ResultSet", "Session",
 ]

@@ -11,6 +11,17 @@ Examples::
     python -m repro_torch characterize --plan inkernel --db db.json --device cpu \
         --ops add,popc,fma.float32 --table
     python -m repro_torch characterize --plan fused --db db.json --table
+    python -m repro_torch characterize --plan memory --db db.json --table
+    python -m repro_torch characterize --plan memory-inkernel --db db.json --table
+    python -m repro_torch characterize --plan memory-inkernel --db db.json --device cpu \
+        --ops inkernel.mem.65536,mem.chase.ws65536 --table
+
+``--plan memory`` is the pointer-chase ladder, 4 KiB to 32 MiB, through
+K3's global path; ``--plan memory-inkernel`` times the chase inside K3 (on
+the card by the SM clock sandwich) at 64 KiB (from shared memory) to 64 MiB
+(from global memory) beside the same sizes' host chase, and ``--table``
+pairs ``inkernel.mem.<N>`` with ``mem.chase.ws<N>``; on a DB that holds the
+memory plan's rows those twins are cache hits.
 
 ``--plan inkernel`` times each of the 58 in-kernel rows inside the kernel
 (on the card by the SM clock sandwich) beside its dispatch-level O3 twin;
@@ -48,7 +59,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="run a characterization plan into a LatencyDB")
     ch.add_argument("--plan", choices=PLAN_NAMES, default="quick",
                     help="named probe plan (default: quick; ported so far: "
-                         "quick, table2, inkernel, fused)")
+                         "quick, table2, memory, inkernel, memory-inkernel, fused)")
     ch.add_argument("--db", required=True,
                     help="LatencyDB JSON path (loaded if present; flushed "
                          "after every probe)")

@@ -2,9 +2,10 @@
 
 A :class:`Plan` is an ordered, duplicate-free tuple of probes; builders make
 the paper's sweeps, ``+`` composes plans and ``filter`` trims them. The
-algebra and the ``quick``, ``table2``, ``inkernel`` and ``fused`` plans are
-those of ``repro.api.plan``, so both packages give the same ordered logical keys.
-The other named plans of the JAX package are not ported yet.
+algebra and the ``quick``, ``table2``, ``memory``, ``inkernel``,
+``memory-inkernel`` and ``fused`` plans are those of ``repro.api.plan``, so
+both packages give the same ordered logical keys. The other named plans of
+the JAX package are not ported yet.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from typing import Iterable, Iterator, Sequence
 from repro_torch import inkernel
 from repro_torch.api.probes import (ClockOverheadProbe, FusedKernelProbe,
                                     InstructionProbe, KernelChainProbe, KernelProbe,
-                                    MemoryProbe, Probe)
+                                    MemoryChaseProbe, MemoryProbe, Probe)
 from repro_torch.core import chains
 from repro_torch.core.chains import OpSpec
 from repro_torch.core.optlevels import OPT_LEVELS
@@ -29,7 +30,15 @@ QUICK_OPS = ("add", "mul", "mad", "div.s.regular", "div.s.irregular",
 PLAN_NAMES = ("quick", "table2", "memory", "inkernel", "memory-inkernel",
               "fused", "serving", "collectives", "serving-sharded", "slo",
               "full")
-PORTED_PLANS = ("quick", "table2", "inkernel", "fused")
+PORTED_PLANS = ("quick", "table2", "memory", "inkernel", "memory-inkernel", "fused")
+
+# The JAX package's in-kernel chase ladder (``Plan.memory_inkernel``): its
+# 16 MiB VMEM budget >> 8, >> 6, >> 4, >> 2, x1, x2, x4, written out so that
+# both plans stay equal. On the card K3's own budget
+# (``kernels.chase.SMEM_BUDGET_BYTES``, 227 KB) picks the path: the 64 KiB
+# rung runs from shared memory, the other six from global memory.
+MEMORY_INKERNEL_LADDER = (64 << 10, 256 << 10, 1 << 20, 4 << 20, 16 << 20, 32 << 20,
+                          64 << 20)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,6 +119,22 @@ class Plan:
                     name="kernels")
 
     @staticmethod
+    def memory_inkernel(working_sets: Sequence[int] | None = None,
+                        lens: tuple[int, int] | None = None,
+                        host_pair: bool = True,
+                        host_steps: tuple[int, int] = (2048, 6144)) -> "Plan":
+        """The in-kernel chase ladder (paper Table IV from shared memory, Fig. 6
+        from global memory), paired by default with the host-level chase at
+        the same sizes, so that one run fills both sides of the host vs
+        in-kernel table (:data:`MEMORY_INKERNEL_LADDER` by default)."""
+        if working_sets is None:
+            working_sets = MEMORY_INKERNEL_LADDER
+        probes: list[Probe] = [MemoryChaseProbe(ws, lens=lens) for ws in working_sets]
+        if host_pair:
+            probes += [MemoryProbe(ws, steps=host_steps) for ws in working_sets]
+        return Plan(_dedupe(tuple(probes)), name="memory-inkernel")
+
+    @staticmethod
     def fused(names: Sequence[str] | None = None,
               lens: tuple[int, int] | None = None) -> "Plan":
         """One :class:`FusedKernelProbe` per fused kernel (flash_attention /
@@ -176,8 +201,12 @@ def named_plan(name: str) -> Plan:
     elif name == "table2":
         plan = (Plan.clock_overhead(("O0", "O3"))
                 + Plan.instructions(opt_levels=("O0", "O3")))
+    elif name == "memory":
+        plan = Plan.memory()
     elif name == "inkernel":
         plan = Plan.inkernel()
+    elif name == "memory-inkernel":
+        plan = Plan.memory_inkernel()
     elif name == "fused":
         plan = Plan.fused()
     elif name in PLAN_NAMES:

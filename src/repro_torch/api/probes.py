@@ -18,6 +18,10 @@ packages.
   ``inkernel``).
 * :class:`FusedKernelProbe` — one fused kernel (rmsnorm, flash_attention,
   flash_decode, mamba_scan) as a two-size workload slope.
+* :class:`MemoryChaseProbe` — the pointer chase inside K3 at one
+  working-set size (``inkernel.mem.<bytes>``; plan name
+  ``memory-inkernel``): from shared memory up to the block's budget, from
+  global memory above (paper Table IV / Fig. 6).
 """
 from __future__ import annotations
 
@@ -211,7 +215,10 @@ class ClockOverheadProbe(Probe):
 
 class MemoryProbe(Probe):
     """Dependent pointer chase at one working-set size (paper Fig. 6 point),
-    one ``chase`` kernel launch per timed chase.
+    one launch of K3's global path per timed chase, under
+    ``membench.level_rule`` (the notes say how: ``warm=<steps>`` walked
+    untimed in each launch, ``carry=1`` for a start carried from launch to
+    launch after an untimed lap).
 
     Non-default chase parameters are part of the op name (and therefore the
     cache key): a short-chase point never satisfies a lookup for the
@@ -251,7 +258,8 @@ class MemoryProbe(Probe):
                         min_ns=pt.latency_ns, n=ctx.timer.reps)
         return self._record(
             ctx, m, notes=f"cold_ns={pt.cold_latency_ns:.3f} "
-                          f"stride={pt.stride_bytes}")
+                          f"stride={pt.stride_bytes} warm={prepared.warm} "
+                          f"carry={int(prepared.carry)}")
 
 
 class KernelProbe(Probe):
@@ -442,3 +450,68 @@ class FusedKernelProbe(Probe):
         return self._record(
             ctx, m, notes=f"{route} fused kernel lens={self.lens[0]}-{self.lens[1]} "
                           f"unit_bytes={inkernel.unit_bytes(self.name)}")
+
+
+class MemoryChaseProbe(Probe):
+    """The pointer chase inside K3 at one working-set size: the memory rows of
+    the in-pipeline method (paper Table IV / Fig. 6), ``inkernel.mem.<bytes>``.
+
+    Timed like :class:`KernelChainProbe`: on the card by K3's clock sandwich
+    (the slope between :data:`inkernel.CHASE_LENS` in SM cycles, converted
+    at the session's SM clock), on the CPU the plain chase on the host
+    clock. The path is picked by the ring's footprint: shared memory up to
+    ``kernels.chase.SMEM_BUDGET_BYTES`` (the VMEM path's counterpart),
+    global memory above (the ANY path's); the notes carry it
+    (``space=smem|global``), the working set, the line and
+    ``membench.level_rule``'s ``warm=`` and ``carry=``
+    (:func:`membench.chasepoint_from_record` reads them back).
+
+    Op name ``inkernel.mem.<bytes>``, ``opt_level`` ``"O3"``, as in the JAX
+    package; non-default lengths, line padding or a *forced* path are
+    another experiment and suffix it (``.l<a>-<b>``, ``.line<n>``,
+    ``.smem`` / ``.global``).
+    """
+
+    category = "memory"
+    dtype = "int32"
+    DEFAULT_LINE_BYTES = 64
+
+    def __init__(self, working_set_bytes: int, line_bytes: int = DEFAULT_LINE_BYTES,
+                 lens: tuple[int, int] | None = None, memory_space: str | None = None,
+                 reps: int = 5):
+        self.working_set_bytes = int(working_set_bytes)
+        self.line_bytes = line_bytes
+        self.lens = tuple(lens) if lens is not None else tuple(inkernel.CHASE_LENS)
+        self.memory_space = memory_space  # None: by footprint
+        self.reps = reps
+        self.opt_level = "O3"
+        self.base_op = f"inkernel.mem.{self.working_set_bytes}"
+        self.host_op = f"mem.chase.ws{self.working_set_bytes}"
+        self.op = self.base_op
+        if self.lens != tuple(inkernel.CHASE_LENS):
+            self.op += f".l{self.lens[0]}-{self.lens[1]}"
+        if self.line_bytes != self.DEFAULT_LINE_BYTES:
+            self.op += f".line{self.line_bytes}"
+        if memory_space is not None:
+            self.op += f".{memory_space}"
+
+    def match_names(self) -> frozenset[str]:
+        # the full name, the unsuffixed in-kernel row, the host twin
+        # (``--ops mem.chase.ws8192`` keeps both sides of the pairing) and
+        # the whole family ``mem``
+        return frozenset((self.op, self.base_op, self.host_op, "mem"))
+
+    def prepare(self, ctx: ProbeContext):
+        return inkernel.prepare_chase(self.working_set_bytes, line_bytes=self.line_bytes,
+                                      lens=self.lens, memory_space=self.memory_space,
+                                      reps=self.reps, device=ctx.device)
+
+    def run_prepared(self, ctx: ProbeContext, prepared) -> LatencyRecord:
+        m, space = inkernel.run_prepared_chase(prepared, ctx.timer, clock_hz=ctx.clock_hz)
+        notes = (f"chase ws={self.working_set_bytes} line={self.line_bytes} space={space} "
+                 f"lens={self.lens[0]}-{self.lens[1]} warm={prepared.warm} "
+                 f"carry={int(prepared.carry)}")
+        if ctx.device.type == "cpu":
+            return self._record(ctx, m, notes=f"plain {notes}")
+        return self._record(ctx, m, notes=f"cuda {notes}",
+                            clock=f"sm_clock64@{ctx.clock_hz / 1e6:.0f}")

@@ -3,8 +3,7 @@
 The dispatch-level path (``repro_torch.core.measure``) times a chain from
 outside its kernels. The paper instead samples ``%clock`` around a
 dependent chain inside the pipeline; the card can do that, as the TPU of
-the JAX package could not. The chain and fused halves of
-``repro.inkernel``:
+the JAX package could not. All of ``repro.inkernel``:
 
 * :func:`supported` / :func:`supported_specs` — the 58 registry rows that
   run inside a kernel (the JAX package's rule: 64-bit rows stay on the
@@ -20,27 +19,34 @@ the JAX package could not. The chain and fused halves of
 * :func:`measure_fused_full` / :func:`prepare_fused` /
   :func:`run_prepared_fused` — per-unit latency from the slope between two
   workload sizes (``inkernel.fused.<name>`` rows);
-* :func:`unit_bytes` — the bytes a unit adds, carried in the row's notes.
+* :func:`unit_bytes` — the bytes a unit adds, carried in the row's notes;
+* :func:`measure_chase_full` / :func:`prepare_chase` /
+  :func:`run_prepared_chase` — per-load latency of the pointer chase inside
+  K3 from the slope between :data:`CHASE_LENS` (``inkernel.mem.<bytes>``
+  rows), on the card from K3's clock sandwich in SM cycles, from shared
+  memory or global memory (``PreparedKernel.memory_space``).
 
 The scheduled front doors are :class:`repro_torch.api.KernelChainProbe`
-(plan name ``inkernel``) and :class:`repro_torch.api.FusedKernelProbe`
-(plan name ``fused``). The chase half of ``repro.inkernel`` is not ported
-yet.
+(plan name ``inkernel``), :class:`repro_torch.api.FusedKernelProbe` (plan
+name ``fused``) and :class:`repro_torch.api.MemoryChaseProbe` (plan name
+``memory-inkernel``).
 """
 from repro_torch.inkernel.factory import (build_chain, default_tile, supported,
                                           supported_specs, tile_layout, tiles)
 from repro_torch.inkernel.fused import (FUSED_KERNELS, FUSED_LENS, build_fused,
                                         fused_kwargs)
-from repro_torch.inkernel.measure import (INKERNEL_LENS, PreparedKernel,
-                                          measure_fused_full, measure_inkernel_full,
+from repro_torch.inkernel.measure import (CHASE_LENS, INKERNEL_LENS, PreparedKernel,
+                                          measure_chase_full, measure_fused_full,
+                                          measure_inkernel_full, prepare_chase,
                                           prepare_fused, prepare_inkernel,
-                                          run_prepared_fused, run_prepared_inkernel,
-                                          unit_bytes)
+                                          run_prepared_chase, run_prepared_fused,
+                                          run_prepared_inkernel, unit_bytes)
 
 __all__ = [
-    "FUSED_KERNELS", "FUSED_LENS", "INKERNEL_LENS", "PreparedKernel", "build_chain",
-    "build_fused", "default_tile", "fused_kwargs", "measure_fused_full",
-    "measure_inkernel_full", "prepare_fused", "prepare_inkernel", "run_prepared_fused",
+    "CHASE_LENS", "FUSED_KERNELS", "FUSED_LENS", "INKERNEL_LENS", "PreparedKernel",
+    "build_chain", "build_fused", "default_tile", "fused_kwargs", "measure_chase_full",
+    "measure_fused_full", "measure_inkernel_full", "prepare_chase", "prepare_fused",
+    "prepare_inkernel", "run_prepared_chase", "run_prepared_fused",
     "run_prepared_inkernel", "supported", "supported_specs", "tile_layout", "tiles",
     "unit_bytes",
 ]

@@ -1,5 +1,5 @@
-"""Slope extraction for the in-kernel chains and the fused kernels (the
-chain and fused halves of ``repro/inkernel/measure.py``).
+"""Slope extraction for the in-kernel chains, the in-kernel pointer chase
+and the fused kernels (``repro/inkernel/measure.py``).
 
 Two kernels that differ only in chain length (or workload size) share the
 launch path and the tile, so ``(T(n2) - T(n1)) / (n2 - n1)`` is the cost of
@@ -9,7 +9,9 @@ timed the paper's way, inside the kernel: K2's timed form reads the SM's
 ``%clock64`` around each thread's chain, and
 :func:`~repro_torch.core.timing.sandwich_slope` takes the slope in SM
 cycles, converted to ns at the SM clock; neither the host clock nor bare
-events resolve 56 steps of a 2 ns op.
+events resolve 56 steps of a 2 ns op. The in-kernel chase is timed the same
+way, through K3's timed form, at :data:`CHASE_LENS`, under
+``core.membench.level_rule``.
 """
 from __future__ import annotations
 
@@ -21,9 +23,11 @@ import torch
 
 from repro_torch.core.chains import OpSpec
 from repro_torch.core.measure import retry_lens_for
+from repro_torch.core.membench import build_ring, lap_steps, level_rule
 from repro_torch.core.timing import Measurement, Timer, sandwich_slope, sm_clock_hz
 from repro_torch.inkernel.factory import build_chain, tiles
 from repro_torch.inkernel.fused import FUSED_LENS, build_fused
+from repro_torch.kernels.chase import chase, chase_timed, resolve_memory_space
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.opchain import op_chain_timed
 from repro_torch.utils import block
@@ -32,6 +36,10 @@ from repro_torch.utils import block
 # put 56 steps of the op between them, and K2's timed form is straight-line
 # at both (TIMED_LENS).
 INKERNEL_LENS = (8, 64)
+
+# The in-kernel chase's two step counts, as in the JAX package: 128 dependent
+# loads between them, and K3's timed form is straight-line at both.
+CHASE_LENS = (64, 192)
 
 
 @dataclasses.dataclass
@@ -51,6 +59,10 @@ class PreparedKernel:
     args: tuple = ()
     retry_lens: tuple[int, int] | None = None
     sandwich: bool = False
+    memory_space: str = ""          # chase only: the path K3 runs
+    warm: int = 0                   # chase only: level_rule's
+    carry: bool = False
+    lap: Callable[[], object] | None = None  # chase only: the untimed lap of a carried ring
     _fns: dict[int, Callable] = dataclasses.field(default_factory=dict)
     _build: Callable[[int], Callable] | None = None
 
@@ -112,6 +124,80 @@ def unit_bytes(name: str) -> int:
         fn, args = build_fused(name, n, "cpu")
         total.append(sum(t.nbytes for t in (*args, fn(*args))))
     return (total[1] - total[0]) // (n2 - n1)
+
+
+def prepare_chase(working_set_bytes: int, line_bytes: int = 64,
+                  lens: tuple[int, int] = CHASE_LENS,
+                  memory_space: str | None = None, reps: int | None = None,
+                  device: str | torch.device | None = None) -> PreparedKernel:
+    """Build the ring on ``device`` (default ``cuda:0``) and run the chase at
+    both lengths once, which builds and loads K3; no timing. The path is
+    ``memory_space``, or the ring's footprint's when None. On the card the
+    callables are K3's timed form and return its cycles; on the CPU the
+    plain chase. Both follow ``core.membench.level_rule``: a ring that fits
+    L1 walks a lap untimed in each launch, a larger one carries its start
+    (the callables chase from, and write back to, ``args[1]``) after an
+    untimed lap (``PreparedKernel.lap``) just before timing."""
+    device = resolve_device(device)
+    ring, start = build_ring(working_set_bytes, line_bytes, device=device)
+    space = resolve_memory_space(ring, memory_space)
+    warm, carry = level_rule(ring.numel() * 4, line_bytes)
+    sandwich = device.type == "cuda"
+
+    def build(n: int) -> Callable:
+        kw = dict(steps=n, warm=warm, memory_space=space)
+        if sandwich:
+            fn = lambda r, s: chase_timed(r, s, **kw, out=s if carry else None)[1]  # noqa: E731
+        else:
+            fn = lambda r, s: chase(r, s, **kw, out=s if carry else None)  # noqa: E731
+        block(fn(ring, start))
+        return fn
+
+    lap = lap_steps(ring.numel() * 4, line_bytes)
+    prepared = PreparedKernel(
+        lens=tuple(lens), reps=reps, args=(ring, start), sandwich=sandwich,
+        memory_space=space, warm=warm, carry=carry, _build=build,
+        lap=(lambda: block(chase(ring, start, steps=lap, memory_space=space, out=start)))
+        if carry else None)
+    prepared.fn_by_len(prepared.lens[0])
+    prepared.fn_by_len(prepared.lens[1])
+    return prepared
+
+
+def run_prepared_chase(prepared: PreparedKernel, timer: Timer | None = None,
+                       clock_hz: float | None = None) -> tuple[Measurement, str]:
+    """Time a prepared chase: ``(measurement, memory_space)``. A carried
+    ring's untimed lap runs first. On the card the slope of K3's clock
+    sandwich, converted at ``clock_hz`` (default: :func:`sm_clock_hz`,
+    sampled now), a non-positive slope raising ``NoisySlopeError``; on the
+    CPU :meth:`Timer.slope` around the plain chase."""
+    timer = timer or Timer()
+    if prepared.lap is not None:
+        with timer.device_ctx():
+            prepared.lap()
+    if prepared.sandwich:
+        hz = clock_hz or sm_clock_hz(timer.device)
+        m = sandwich_slope(
+            lambda n: functools.partial(prepared.fn_by_len(n), *prepared.args),
+            *prepared.lens, clock_hz=hz, reps=prepared.reps or 5,
+            warmup=max(timer.warmup, 1))
+    else:
+        m = timer.slope(prepared.fn_by_len, *prepared.lens, *prepared.args,
+                        reps=prepared.reps)
+    return m, prepared.memory_space
+
+
+def measure_chase_full(working_set_bytes: int, line_bytes: int = 64,
+                       lens: tuple[int, int] = CHASE_LENS, timer: Timer | None = None,
+                       memory_space: str | None = None, reps: int | None = None,
+                       clock_hz: float | None = None) -> tuple[Measurement, str]:
+    """Per-load in-kernel chase latency at one working-set size on the
+    timer's device, and the path K3 ran (``"smem"`` or ``"global"``): the
+    serial form of ``run_prepared_chase(prepare_chase(...))``."""
+    timer = timer or Timer()
+    return run_prepared_chase(
+        prepare_chase(working_set_bytes, line_bytes, lens, memory_space=memory_space,
+                      reps=reps, device=timer.device), timer, clock_hz=clock_hz)
 
 
 def prepare_inkernel(spec: OpSpec, lens: tuple[int, int] = INKERNEL_LENS,

@@ -25,14 +25,14 @@ import pytest
 import torch
 
 from repro_torch import inkernel
-from repro_torch.api import Plan, Session
+from repro_torch.api import MemoryChaseProbe, Plan, Session
 from repro_torch.api.cli import main as cli_main
 from repro_torch.core import measure, membench
 from repro_torch.core.chains import spec_by_name
 from repro_torch.core.timing import Timer, sandwich_slope, sm_clock_hz
 from repro_torch.kernels import opchain
 from repro_torch.kernels.alu_chain import OPS, alu_chain, alu_chain_plain, alu_chain_timed
-from repro_torch.kernels.chase import chase, chase_plain
+from repro_torch.kernels.chase import SMEM_BUDGET_BYTES, chase, chase_plain, chase_timed
 from repro_torch.kernels.flash_attention import (HEAD_DIMS, flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
@@ -311,6 +311,71 @@ def test_chase_kernel_bit_exact(dev, ws):
         got = chase(ring, start, steps=steps)
         assert got.device == ring.device
         assert torch.equal(got.cpu(), chase_plain(ring.cpu(), start.cpu(), steps=steps))
+
+
+@pytest.mark.parametrize("form", ["chase", "chase_timed"])
+@pytest.mark.parametrize("ws,space", [(4096, "smem"), (4096, "global"), (1 << 16, "smem"),
+                                      (1 << 16, "global"), (SMEM_BUDGET_BYTES, "smem"),
+                                      (1 << 21, "global")])
+def test_chase_paths_and_forms_bit_exact(dev, ws, space, form):
+    """K3 on both paths, in both forms, with and without a warm lap, equals
+    the plain chase; the timed form's cycles are positive."""
+    ring, start = membench.build_ring(ws, device=dev)
+    lap = ring.numel() // 16
+    for steps in (64, 192, 37):
+        for warm in (0, lap):
+            want = chase_plain(ring.cpu(), start.cpu(), steps=steps, warm=warm)
+            if form == "chase":
+                got = chase(ring, start, steps=steps, warm=warm, memory_space=space)
+            else:
+                got, cycles = chase_timed(ring, start, steps=steps, warm=warm,
+                                          memory_space=space)
+                assert cycles.dtype == torch.int64 and int(cycles[0]) > 0
+            assert torch.equal(got.cpu(), want), (steps, warm)
+
+
+@pytest.mark.parametrize("space", ["smem", "global"])
+def test_chase_carried_start_continues(dev, space):
+    ring, start = membench.build_ring(1 << 16, device=dev)
+    pos = start.clone()
+    for _ in range(2):
+        assert chase(ring, pos, steps=37, memory_space=space, out=pos) is pos
+        p, _ = chase_timed(ring, pos, steps=64, memory_space=space, out=pos)
+        assert p is pos
+    assert int(pos[0]) == int(chase_plain(ring.cpu(), start.cpu(), steps=2 * (37 + 64))[0])
+
+
+def test_chase_smem_above_the_budget_raises(dev):
+    ring, start = membench.build_ring(SMEM_BUDGET_BYTES + 64, device=dev)
+    before = chase.launches
+    for form in (chase, chase_timed):
+        with pytest.raises(ValueError, match="does not fit"):
+            form(ring, start, steps=64, memory_space="smem")
+    assert chase.launches == before
+    got, _ = chase_timed(ring, start, steps=64)  # by footprint: global
+    assert torch.equal(got.cpu(), chase_plain(ring.cpu(), start.cpu(), steps=64))
+    assert chase.launches_by_path["timed/global"] > 0
+
+
+def test_session_runs_the_inkernel_memory_rungs_on_card(dev, tmp_path):
+    """An smem rung and a carried global rung beside their host twins: every
+    in-kernel record on the SM clock sandwich, with its path and the level
+    rule in its notes."""
+    plan = Plan.memory_inkernel((1 << 16, 1 << 20), host_steps=(512, 1536))
+    session = Session(db=str(tmp_path / "db.json"), device=dev,
+                      timer=Timer(warmup=1, reps=5, device=dev))
+    result = session.run(plan)
+    assert not result.failed, [r.failure for r in result.failed]
+    recs = {r.op: r for r in result.records()}
+    assert recs["inkernel.mem.65536"].notes.startswith(
+        "cuda chase ws=65536 line=64 space=smem lens=64-192 warm=1024 carry=0")
+    assert recs["inkernel.mem.1048576"].notes.startswith(
+        "cuda chase ws=1048576 line=64 space=global lens=64-192 warm=0 carry=1")
+    for op in ("inkernel.mem.65536", "inkernel.mem.1048576"):
+        assert "clock=sm_clock64@" in recs[op].notes and recs[op].latency_ns > 0
+    assert "clock=events" in recs["mem.chase.ws1048576.s512-1536"].notes
+    assert recs["inkernel.mem.65536"].latency_ns < recs["inkernel.mem.1048576"].latency_ns
+    assert isinstance(plan.probes[0], MemoryChaseProbe)
 
 
 def test_wrapper_refuses_mixed_devices(dev):
