@@ -110,12 +110,34 @@ Phases, each of which must pass:
    memory plan recorded cache hits, the 64 MiB twin measured; K3 launched
    in its timed form on both paths; the pairing table printed. It prints
    the in-kernel ladder beside its host twins, and its levels;
-8. the same for ``characterize --plan fused``: it must launch K4-K7 and
+   every characterize run passes ``--audit``, so each record
+   is judged as it is measured;
+8. ``o1``: clock_overhead and the 15 ``QUICK_OPS`` at O1 (torch.compile's
+   aot_eager backend) through ``Session(audit=True)`` on that DB, the
+   counts set to 0 just before and read just after: every record timed by
+   events, on the SM clock, with ``o1=`` and ``audit=`` in its notes (and
+   an instruction row's ``launch=`` naming the CUDA graph it replays
+   from), and each O1 chain bit for bit its eager chain at n 64 and 512;
+   the O1 chains compiled and captured in this process while quick and
+   table2 waited on the compile workers (``CompilePool.local``), counting
+   no launch there: a graph's replay counts the launches it makes;
+9. ``audit``: ``audit --db <that DB> --lint --lowering --attribution
+   <file> --strict`` in this process: every record carries ``audit=``;
+   not, bfi and mul24 at O3 and inkernel.bfi are ``transformed`` (their
+   failures' messages carry the verdicts of the probes that failed); every
+   ``transformed`` verdict is in ``KNOWN_TRANSFORMED``; no row outside
+   special math and the fused rows is ``unaudited``; ``--strict`` exits 1.
+   It prints every verdict, the counts by status and by family and the
+   attribution rows of the ``QUICK_OPS``, and then that the compile pool
+   ran only the 130 O3 chains of quick and table2 and the seconds the O1
+   chains took beside them; the lowering lint compiles its 72 short O1
+   chains (on the CPU) here, after the pool;
+10. the same for ``characterize --plan fused``: it must launch K4-K7 and
    measure the flash_attention, flash_decode and mamba_scan rows; the
    rmsnorm row may end as a NoisySlopeError failure (its row blocks run in
    parallel, so its slope is near the clock's resolution), and the script
    prints which;
-9. time each kernel, its plain version, its bound (the larger of bytes
+11. time each kernel, its plain version, its bound (the larger of bytes
    and operations; K5 float32's operations at the least of float32 FMAs,
    3xTF32 and 3xBF16 on the tensor cores, the choice printed; K7's at its
    float32 operations, its exponentials on the SFU alone printed beside
@@ -139,7 +161,7 @@ Phases, each of which must pass:
    256 MiB of other data went through L2 before each launch, print the
    calibrated SM clock, and time op_chain's loop: each step's time with 1
    and with 32 steps to an iteration;
-10. print the ``{"kernels": [...]}`` line (each kernel with the design each
+12. print the ``{"kernels": [...]}`` line (each kernel with the design each
    dtype runs), the card's name and power limit, and, last, ``{"ok": true,
    "device": {...}}``.
 
@@ -149,7 +171,6 @@ repository's sources are missing.
 from __future__ import annotations
 
 import contextlib
-import functools
 import importlib
 import io
 import json
@@ -826,7 +847,8 @@ def run_quick(dev: torch.device, db_path: str) -> dict[str, int]:
     from repro_torch.core.latency_db import LatencyDB, current_environment
 
     zero_counts()
-    rc = cli_main(["characterize", "--plan", "quick", "--db", db_path, "--table"])
+    rc = cli_main(["characterize", "--plan", "quick", "--db", db_path, "--table",
+                       "--audit"])
     launches = read_counts()
     if rc != 0:
         fail(f"characterize --plan quick exited {rc}")
@@ -856,47 +878,6 @@ def run_quick(dev: torch.device, db_path: str) -> dict[str, int]:
 
 
 # ------------------------------------------------------------ table2
-def loaded_inductor_modules() -> list:
-    """Every module Inductor's code cache has loaded in this process (the
-    generated wrappers and their Triton kernels)."""
-    from torch._inductor.codecache import PyCodeCache
-    return [*PyCodeCache.modules, *PyCodeCache.modules_no_attr.values()]
-
-
-def triton_cubins(modules: list) -> list[Path]:
-    """The cubins of the Triton kernels that ``modules`` hold, found by each
-    launcher's cache hash under Triton's cache directories."""
-    from torch._inductor.runtime.triton_heuristics import CachingAutotuner
-    try:
-        from torch._inductor.runtime.cache_dir_utils import cache_dir, triton_cache_dir
-    except ImportError:  # an older layout of the same helpers
-        from torch._inductor.runtime.runtime_utils import cache_dir, triton_cache_dir
-    roots = [Path(triton_cache_dir(0)), Path(cache_dir())]
-    hashes = {launcher.cache_hash for mod in modules for obj in vars(mod).values()
-              if isinstance(obj, CachingAutotuner) for launcher in obj.launchers}
-    cubins = set()
-    for h in hashes:
-        found = sorted((roots[0] / h).glob("*.cubin")) or sorted(roots[1].rglob(f"{h}/*.cubin"))
-        cubins.update(found)
-    return sorted(cubins)
-
-
-def warm_and_read(fn, *args) -> dict:
-    """The compile pool's runner: a warm task (``measure.warm_chain``), then
-    the SASS of the Triton kernels that task loaded, as a count of each
-    mnemonic (``"sass"``) over its cubins (``"cubins"``)."""
-    from collections import Counter
-
-    before = {id(m) for m in loaded_inductor_modules()}
-    result = fn(*args)
-    cubins = triton_cubins([m for m in loaded_inductor_modules() if id(m) not in before])
-    sass = Counter()
-    for cubin in cubins:
-        for body in sass_functions(cubin).values():
-            sass.update(sass_mnemonics(body))
-    return {**result, "sass": dict(sass), "cubins": len(cubins)}
-
-
 # compile phases (Dynamo's and Inductor's timers, measure.compile_phases) by
 # the name printed for them; each a sum of timers, nested ones not repeated
 COMPILE_PHASES = {
@@ -963,7 +944,8 @@ def run_table2(dev: torch.device, db_path: str, pool) -> dict[str, int]:
     from repro_torch.core.latency_db import LatencyDB, current_environment
 
     zero_counts()
-    rc = cli_main(["characterize", "--plan", "table2", "--db", db_path, "--table"])
+    rc = cli_main(["characterize", "--plan", "table2", "--db", db_path, "--table",
+                       "--audit"])
     launches = read_counts()
     db = LatencyDB(db_path)
     env = current_environment(dev)
@@ -1044,20 +1026,12 @@ def run_table2(dev: torch.device, db_path: str, pool) -> dict[str, int]:
     return launches
 
 
-def counted() -> tuple:
-    """The wrappers whose launches a run counts: the seven kernels'
-    (``ops.KERNELS``), and K2's and K3's timed forms' own counts beside
-    K2's and K3's, which count both of their forms."""
-    from repro_torch.kernels.chase import chase_timed
-    from repro_torch.kernels.ops import KERNELS
-    from repro_torch.kernels.opchain import op_chain_timed
-    return KERNELS + (op_chain_timed, chase_timed)
-
-
 def zero_counts() -> None:
-    """Set every launch count to 0, K3's by form and path too."""
+    """Set every launch count to 0 (``kernels.ops.COUNTED``), K3's by form
+    and path too."""
     from repro_torch.kernels.chase import chase
-    for k in counted():
+    from repro_torch.kernels.ops import COUNTED
+    for k in COUNTED:
         k.launches = 0
     chase.launches_by_path.clear()
 
@@ -1065,10 +1039,8 @@ def zero_counts() -> None:
 def read_counts() -> dict[str, int]:
     """Each wrapper's launches since :func:`zero_counts`, and K3's by form
     and path (``chase/timed/smem``, ...)."""
-    from repro_torch.kernels.chase import chase
-    out = {k.__name__: k.launches for k in counted()}
-    out.update({f"chase/{path}": n for path, n in sorted(chase.launches_by_path.items())})
-    return out
+    from repro_torch.kernels.ops import launch_counts
+    return launch_counts()
 
 
 def check_cycles(rec) -> None:
@@ -1108,7 +1080,8 @@ def run_inkernel(dev: torch.device, db_path: str,
     zero_counts()
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = cli_main(["characterize", "--plan", "inkernel", "--db", db_path, "--table"])
+        rc = cli_main(["characterize", "--plan", "inkernel", "--db", db_path, "--table",
+                       "--audit"])
     launches = read_counts()
     out = buf.getvalue()
     print(out, end="")
@@ -1193,7 +1166,8 @@ def run_memory(dev: torch.device, db_path: str) -> dict[str, int]:
     env = current_environment(dev)
     plan = named_plan("memory")
     zero_counts()
-    rc = cli_main(["characterize", "--plan", "memory", "--db", db_path, "--table"])
+    rc = cli_main(["characterize", "--plan", "memory", "--db", db_path, "--table",
+                       "--audit"])
     launches = read_counts()
     if rc != 0:
         fail(f"characterize --plan memory exited {rc}")
@@ -1253,7 +1227,8 @@ def run_memory_inkernel(dev: torch.device, db_path: str) -> dict[str, int]:
     zero_counts()
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = cli_main(["characterize", "--plan", "memory-inkernel", "--db", db_path, "--table"])
+        rc = cli_main(["characterize", "--plan", "memory-inkernel", "--db", db_path, "--table",
+                       "--audit"])
     launches = read_counts()
     out = buf.getvalue()
     print(out, end="")
@@ -1304,6 +1279,146 @@ def run_memory_inkernel(dev: torch.device, db_path: str) -> dict[str, int]:
     return launches
 
 
+# ------------------------------------------------------------ o1, audit
+def run_o1(dev: torch.device, db_path: str) -> dict[str, int]:
+    """Phase o1: clock_overhead and the 15 ``QUICK_OPS`` at O1 through
+    ``Session(audit=True)`` on the run's DB, the launch counts set to 0 just
+    before and read just after. Their chains compiled in this process while
+    quick's and table2's sessions waited on the compile workers
+    (``CompilePool.local``), so here they are found compiled and captured.
+    Every record must be timed by events, count ``cycles`` on the SM clock,
+    state O1's settings (``o1=``) and, but clock_overhead's, the CUDA graph
+    it replays from (``launch=``), and carry a verdict; each O1 chain's
+    result must equal its eager chain at n 64 and 512. Prints each row's ns a step at
+    O0, O1 and O3."""
+    from repro_torch.api.plan import QUICK_OPS, Plan
+    from repro_torch.api.session import Session
+    from repro_torch.core import chains, measure
+    from repro_torch.core.latency_db import LatencyDB
+    from repro_torch.core.timing import Timer
+
+    plan = Plan.clock_overhead(("O1",)) + Plan.instructions(ops=QUICK_OPS, opt_levels=("O1",))
+    db = LatencyDB(db_path)
+    zero_counts()
+    result = Session(db=db, device=dev, timer=Timer(device=dev), audit=True).run(plan)
+    launches = read_counts()
+    if result.failed or len(result.measured) != len(plan):
+        fail(f"o1: {result.summary()}: {[r.failure for r in result.failed]}")
+    for r in result.results:
+        rec = r.record
+        graphed = rec.op == "clock_overhead" or re.search(r"\blaunch=\S*cuda_graph", rec.notes)
+        if not (math.isfinite(rec.latency_ns) and rec.latency_ns >= 0 and rec.n_samples > 0
+                and "clock=events" in rec.notes and " o1=" in f" {rec.notes}"
+                and "audit=" in rec.notes and graphed):
+            fail(f"bad O1 record {rec}")
+        check_cycles(rec)
+        cells = []
+        for level in ("O0", "O1", "O3"):
+            other = db.get(rec.key()[:3] + (level,) + rec.key()[4:])
+            cells.append(f"{level} {other.latency_ns:.2f} ns" if other else f"{level} -")
+        print(f"o1: {rec.op} {rec.dtype}: {'; '.join(cells)} (net {rec.net_latency_ns:.2f}, "
+              f"MAD {rec.mad_ns:.2f}); notes {rec.notes}")
+    for name in QUICK_OPS:
+        spec = chains.spec_by_name(name)
+        for n in measure._CHAIN_LENS["O1"]:
+            args = (spec.carry(dev), *spec.operand_tensors(dev))
+            got = measure.compile_chain(spec, n, "O1", dev)(*args)
+            want = chains.chain_fn(spec, n)(*args)
+            if not torch.equal(got.reshape(1).view(torch.uint8), want.reshape(1).view(torch.uint8)):
+                fail(f"{name}@O1 n {n}: {got.item()!r}, its eager chain {want.item()!r}")
+    print(f"o1: {len(result.measured)} records; each O1 chain of the {len(QUICK_OPS)} quick "
+          f"rows equals its eager chain at n {measure._CHAIN_LENS['O1']}; launches {launches}")
+    return launches
+
+
+# transformed verdicts the audit expects on the card, each explained in
+# PERF.md with its PTX and SASS evidence
+KNOWN_TRANSFORMED = {
+    ("not", "O3"): "LLVM: ~(~x + a) + a is x - 1 + ...: two steps fold, no step is left",
+    ("bfi", "O3"): "LLVM: (x & ~0xFF) | c is idempotent: one step is left",
+    ("mul24", "O3"): "LLVM: the masks drop out and x*A*A... becomes x*A^n by squaring",
+    ("cnot", "O3"): "LLVM: the + a folds into the select's arms (a and a + 1, hoisted)",
+    ("sad", "O3"): "LLVM: the next step's - a merges with + b (b - a hoisted)",
+    ("inkernel.bfi", "O3"): "ptxas: K2's timed bfi chain is idempotent: no step is left",
+}
+MUST_TRANSFORM = (("not", "O3"), ("bfi", "O3"), ("mul24", "O3"), ("inkernel.bfi", "O3"))
+
+
+def run_audit(dev: torch.device, db_path: str, attribution: str) -> None:
+    """Phase audit: ``audit --db <the run's DB> --lint --lowering
+    --attribution <file> --strict`` in this process (the O3 chains' PTX and
+    SASS are those the compile workers handed back). Prints each verdict,
+    the counts by status and by family and the attribution rows of the
+    ``QUICK_OPS``; the verdicts of the probes that failed (folded chains)
+    are read from their failures' messages. Fails when a record lacks
+    ``audit=``, when not, bfi, mul24 at O3 or inkernel.bfi is not
+    ``transformed`` with a cause from ``transforms.CAUSES``, when a
+    ``transformed`` verdict is not in ``KNOWN_TRANSFORMED``, when a row
+    outside special math and the fused rows is ``unaudited``, or when the
+    strict exit code is not 1 while transformed rows exist."""
+    from repro_torch.api.cli import main as cli_main
+    from repro_torch.audit.chain_check import ChainVerdict, _verdict_from_note
+    from repro_torch.audit.transforms import CAUSES
+    from repro_torch.core.chains import spec_by_name
+    from repro_torch.core.latency_db import LatencyDB
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["audit", "--db", db_path, "--lint", "--lowering", "--attribution",
+                       attribution, "--strict"])
+    out = buf.getvalue()
+    print("".join(f"audit: {ln}\n" for ln in out.splitlines()), end="")
+    db = LatencyDB(db_path)
+    verdicts = {}
+    for rec in db.records():
+        v = _verdict_from_note(rec.op, rec.opt_level, rec.notes)
+        if v is None:
+            fail(f"{rec.op}@{rec.opt_level}: no audit= in its notes: {rec.notes}")
+        verdicts[(rec.op, rec.opt_level)] = (v, rec.category)
+    for f in db.failures():
+        m = re.search(r"\[audit=([\w.:-]+)(?: audit_transform=[\w-]+)?\]", f.message)
+        if not m:
+            fail(f"{f.op}@{f.opt_level} failed with no verdict: {f.message}")
+        status, _, cause = m[1].partition(":")
+        verdicts[(f.op, f.opt_level)] = (ChainVerdict(f.op, f.opt_level, status, cause), None)
+    by_status, by_family = {}, {}
+    for (op, level), (v, category) in sorted(verdicts.items()):
+        family = category or op.split(".")[0]
+        by_status[v.status] = by_status.get(v.status, 0) + 1
+        by_family.setdefault(family, {}).setdefault(v.status, 0)
+        by_family[family][v.status] += 1
+        print(f"audit: verdict {op}@{level}: {v.note()}")
+        if v.status == "transformed":
+            if v.cause not in CAUSES and (op, level) in MUST_TRANSFORM:
+                fail(f"{op}@{level}: cause {v.cause!r} is not in transforms.CAUSES")
+            if (op, level) not in KNOWN_TRANSFORMED:
+                fail(f"{op}@{level} is transformed ({v.cause}) and not in KNOWN_TRANSFORMED")
+        if v.status == "unaudited" and not op.startswith("inkernel.fused."):
+            row = op.removeprefix("inkernel.")
+            try:
+                special = spec_by_name(row).category == "special_math"
+            except KeyError:
+                special = False
+            if not special:
+                fail(f"{op}@{level} is unaudited ({v.cause}) outside special math")
+    for key in MUST_TRANSFORM:
+        v = verdicts.get(key, (None,))[0]
+        if v is None or v.status != "transformed":
+            fail(f"{key[0]}@{key[1]}: {v}: its chain is folded, the audit must say so")
+    transformed = by_status.get("transformed", 0)
+    if rc != (1 if transformed else 0):
+        fail(f"audit --strict exited {rc} with {transformed} transformed verdicts")
+    print(f"audit: {len(verdicts)} verdicts (records and failures): "
+          + ", ".join(f"{k}={n}" for k, n in sorted(by_status.items())))
+    for family, counts in sorted(by_family.items()):
+        print(f"audit: family {family}: "
+              + ", ".join(f"{k}={n}" for k, n in sorted(counts.items())))
+    print(f"audit: --strict exited {rc}")
+    for ln in Path(attribution).read_text().splitlines():
+        if ln.startswith("| `"):
+            print(f"attribution: {ln}")
+
+
 def probe_twin(probe, twins):
     """The host chase at an in-kernel rung's working set."""
     return next(t for t in twins if t.working_set_bytes == probe.working_set_bytes)
@@ -1319,7 +1434,8 @@ def run_fused(dev: torch.device) -> dict[str, int]:
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         db_path = str(Path(tmp) / "fused_db.json")
         zero_counts()
-        rc = cli_main(["characterize", "--plan", "fused", "--db", db_path, "--table"])
+        rc = cli_main(["characterize", "--plan", "fused", "--db", db_path, "--table",
+                       "--audit"])
         launches = read_counts()
         db = LatencyDB(db_path)
     env = current_environment(dev)
@@ -1813,28 +1929,6 @@ def chase_sandwiches(hz: float, trials: int, reps: int, rungs: dict) -> None:
               "(min / median / max of 30)")
 
 
-def sass_functions(binary: Path) -> dict[str, list[str]]:
-    """Each function's SASS instruction lines in a shared library or cubin
-    (``cuobjdump -sass``), by mangled name."""
-    from repro_torch.kernels import _build
-
-    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
-    out = subprocess.run([str(cuobjdump), "-sass", str(binary)],
-                         capture_output=True, text=True, check=True).stdout
-    funcs = {}
-    for block in out.split("Function : ")[1:]:
-        name, _, body = block.partition("\n")
-        funcs[name.strip()] = [ln for ln in body.splitlines() if re.search(r"/\*[0-9a-f]{4,}\*/", ln)]
-    return funcs
-
-
-def sass_mnemonics(body: list[str]) -> list[str]:
-    """Each instruction's full mnemonic (HMMA.1688.F32.TF32, MUFU.EX2, ...)."""
-    found = (re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", ln)
-             for ln in body)
-    return [m.group(1) for m in found if m]
-
-
 def sass_checks(build: Path) -> dict[str, tuple[float, dict]]:
     """What each design promises, in the SASS of the built libraries (counts
     printed; a missing one fails): K5's bf16 instances run HGMMA (wgmma; or
@@ -1847,9 +1941,10 @@ def sass_checks(build: Path) -> dict[str, tuple[float, dict]]:
     high multiply show their divisor classes (:func:`k2_sass_checks`); and
     K2's timed form brackets each in-kernel row's chain with its clock
     reads (:func:`k2_timed_sass`, whose per-row result it returns)."""
-    @functools.cache
-    def functions(lib: str) -> dict[str, list[str]]:
-        return sass_functions(build / f"lib{lib}.so")
+    from repro_torch.audit import artifacts, dataflow
+
+    def functions(lib: str) -> dict[str, list[str]]:  # read once a process
+        return artifacts.library_sass(lib)
 
     def op(line: str) -> str:
         m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
@@ -1867,7 +1962,7 @@ def sass_checks(build: Path) -> dict[str, tuple[float, dict]]:
         print(f"sass: K5 {name.split('wgmma_kernel')[-1][:12]}: "
               + ", ".join(f"{n} {o}" for o, n in counts.items()) + f", {len(body)} instructions")
 
-    mnemonics = sass_mnemonics
+    mnemonics = artifacts.sass_mnemonics
 
     tf32 = {n: body for n, body in functions("flash_attention").items()
             if "flash_attention_tf32_kernel" in n}
@@ -1923,33 +2018,24 @@ def sass_checks(build: Path) -> dict[str, tuple[float, dict]]:
         inst = re.search(r"rmsnorm_kernelI(.*?)EEv", name).group(1)
         print(f"sass: K4 {inst}: " + ", ".join(f"{n} {o}" for o, n in counts.items())
               + f", {len(body)} instructions")
-    # alu_chain_kernel<op 0 (fma), N 64, timed>
+    # K1's timed fma chain at n 8 and 64 (alu_chain_kernel<op 0, N, timed>):
+    # between the clock reads one dependent path of n FFMAs, no branch
+    v = dataflow.audit_alu_kernel("fma", "O3")
+    if v.status != "audited":
+        fail(f"K1 timed fma: {v}")
     (timed,) = [body for n, body in functions("alu_chain").items()
                 if "alu_chain_kernelILi0ELi64ELb1E" in n]
-    ops = [op(ln) for ln in timed]
-    clock = [i for i, ln in enumerate(timed) if "SR_CLOCK" in ln]
-    ffma = [i for i, o in enumerate(ops) if o == "FFMA"]
-    branches = [i for i in range(clock[0], clock[-1]) if ops[i] == "BRA"] if clock else []
-    if not (clock and len(ffma) == 64 and clock[0] < ffma[0] and clock[-1] > ffma[-1]
-            and not branches):
-        fail(f"K1 timed fma n 64: clock reads at {clock}, {len(ffma)} FFMAs at "
-             f"{ffma[:3]}..{ffma[-3:]}, branches at {branches}: the reads do not "
-             "bracket a straight-line chain of 64")
+    cert = dataflow.region_cert(timed)
+    if cert.mnemonics["FFMA"] != 64 or cert.branches:
+        fail(f"K1 timed fma n 64: {cert}")
     text = [ln.split(";")[0].split("*/")[-1].strip() for ln in timed]
-    print(f"sass: K1 timed fma chain, n 64: {len(clock)} clock reads at instructions {clock}, "
-          f"{len(ffma)} FFMAs between {ffma[0]} and {ffma[-1]}, no branch; each read and "
+    print(f"sass: K1 timed fma chain, n 64: clock reads at instructions {list(cert.reads)}, "
+          f"{cert.mnemonics['FFMA']} FFMAs between, no branch ({v.detail}); each read and "
           "the instruction before it: "
-          + "; ".join(f"{i}: {text[i - 1]} | {text[i]}" for i in clock))
+          + "; ".join(f"{i}: {text[i - 1]} | {text[i]}" for i in cert.reads))
     k2_sass_checks(functions, mnemonics)
     k3_timed_sass(functions, mnemonics)
     return k2_timed_sass(functions, mnemonics)
-
-
-def struct_name(step: str) -> str:
-    """The name of a K2 step's struct in op_chain.cu (add.float32 ->
-    AddFloat32), as it appears, length first, in a mangled kernel name."""
-    name = "".join(p[:1].upper() + p[1:] for p in step.split("."))
-    return f"{len(name)}{name}E"
 
 
 # K2's table2 rows (the uint32 divides, high multiply, popc and clz) and
@@ -1976,11 +2062,13 @@ def k2_step_sass(functions, mnemonics) -> dict[str, tuple[dict, dict]]:
     mnemonic)."""
     from collections import Counter
 
+    from repro_torch.audit.chain_check import k2_struct
+
     out = {}
     for step in K2_SASS:
         found = {int(re.search(r"Li(\d+)EEEv", n).group(1)): Counter(mnemonics(b))
                  for n, b in functions("op_chain").items()
-                 if "op_chain_kernelI" in n and struct_name(step) in n}
+                 if "op_chain_kernelI" in n and k2_struct(step) in n}
         if sorted(found) != [1, 32]:
             fail(f"expected K2's {step} at unroll 1 and 32 in the SASS, found {sorted(found)}")
         per = {m: (found[32][m] - found[1][m]) / 31 for m in found[32] | found[1]}
@@ -2015,54 +2103,43 @@ def k2_sass_checks(functions, mnemonics) -> None:
             fail(f"K2 {step}: a step does not run each of {claimed} (its notes): {per}")
 
 
-BRANCHES = ("BRA", "BRX", "JMP", "JMX", "CALL")
-
-
 def k2_timed_sass(functions, mnemonics) -> dict[str, tuple[float, dict]]:
     """K2's timed form for each of the 58 in-kernel rows, in the SASS of its
-    straight-line instances at n 8 and 64: the clock reads bracket the
-    chain (nothing that grows with n lies before the first read, and no
-    branch lies between the reads beyond those of the steps themselves, a
-    slow path's test: 8 times as many at n 64 as at n 8); what one step
-    runs, the mnemonics between the reads at n 64 less those at n 8, over
-    the 56 steps between; a row under one instruction a step is folded.
-    Each row's mnemonics named in ``opchain.STEP_SASS`` must be
-    there. Returns each row's (instructions a step, their mnemonics)."""
-    from collections import Counter
-
+    straight-line instances at n 8 and 64, certified by
+    ``audit.dataflow.audit_inkernel_op`` (serialization: the longest
+    dependent path between the clock reads grows a step at a time, no loop
+    between the reads, a step's branches as many at both lengths;
+    signature: a step runs at least one instruction): every row ``audited``
+    but those ptxas folds (under one instruction a step), which come back
+    ``transformed``. Besides: nothing that grows with n lies before the
+    first read, and each row's mnemonics named in ``opchain.STEP_SASS``
+    are in a step. Returns each row's (instructions a step, their
+    mnemonics)."""
     from repro_torch import inkernel
+    from repro_torch.audit import dataflow
     from repro_torch.kernels.opchain import STEP_SASS, TIMED_LENS
 
     n1, n2 = TIMED_LENS
-    lib = functions("op_chain_timed")
     out, folded = {}, []
     for spec in inkernel.supported_specs():
-        seen = {}
-        for n in TIMED_LENS:
-            (body,) = [b for name, b in lib.items() if "op_chain_timed_kernelI" in name
-                       and f"{struct_name(spec.name)}Li{n}E" in name]
-            ops = mnemonics(body)
-            reads = [i for i, ln in enumerate(body) if "SR_CLOCK" in ln]
-            if not reads or len(reads) % 2:
-                fail(f"K2 timed {spec.name} n {n}: clock reads at {reads} in its SASS")
-            lo, hi = reads[len(reads) // 2 - 1], reads[len(reads) // 2]
-            between = Counter(ops[lo + 1:hi])
-            seen[n] = (reads, between, sum(c for m, c in between.items()
-                                           if m.split(".")[0] in BRANCHES))
-        per = {m: (seen[n2][1][m] - seen[n1][1][m]) / (n2 - n1)
-               for m in seen[n2][1] | seen[n1][1]}
-        per = {m: c for m, c in sorted(per.items(), key=lambda kv: -kv[1]) if c > 0}
+        certs = dataflow.timed_certs("op_chain_timed", dataflow.inkernel_op_pattern(spec.name),
+                                     tuple(TIMED_LENS))
+        if certs is None:
+            fail(f"K2 timed {spec.name}: an instance at n {TIMED_LENS} is missing or its clock "
+                 "reads are unpaired")
+        per = dataflow.per_step(certs, TIMED_LENS)
         total = sum(per.values())
-        (r1, _, b1), (r2, _, b2) = seen[n1], seen[n2]
-        if r2[0] - r1[0] >= max(total, 1.0):
-            fail(f"K2 timed {spec.name}: {r2[0]} instructions before the first clock read at "
-                 f"n {n2}, {r1[0]} at n {n1}: the chain is not between the reads")
-        if b2 != (n2 // n1) * b1:
-            fail(f"K2 timed {spec.name}: {b1} / {b2} branches between the reads at n {n1} / "
-                 f"{n2}: a loop between the reads")
-        print(f"sass: K2 timed {spec.name}: reads at {r1} / {r2} (n {n1} / {n2}), branches "
-              f"between {b1} / {b2}; a step runs {total:.2f} instructions: "
-              + ", ".join(f"{m} {c:.2f}" for m, c in per.items()))
+        verdict = dataflow.audit_inkernel_op(spec, "O3")
+        (c1, c2) = certs
+        if c2.reads[0] - c1.reads[0] >= max(total, 1.0):
+            fail(f"K2 timed {spec.name}: {c2.reads[0]} instructions before the first clock read "
+                 f"at n {n2}, {c1.reads[0]} at n {n1}: the chain is not between the reads")
+        if verdict.status != ("audited" if total >= 1.0 else "transformed"):
+            fail(f"K2 timed {spec.name}: {verdict}")
+        print(f"sass: K2 timed {spec.name}: reads at {list(c1.reads)} / {list(c2.reads)} "
+              f"(n {n1} / {n2}), branches between {c1.branches} / {c2.branches}; a step runs "
+              f"{total:.2f} instructions: " + ", ".join(f"{m} {c:.2f}" for m, c in per.items())
+              + f"; {verdict.status}{':' + verdict.cause if verdict.cause else ''}")
         claimed = STEP_SASS.get(spec.name)
         if claimed and not all(sum(c for m, c in per.items() if m.startswith(p)) >= 0.99
                                for p in claimed.split("+")):
@@ -2075,48 +2152,32 @@ def k2_timed_sass(functions, mnemonics) -> dict[str, tuple[float, dict]]:
     return out
 
 
-K3_LOADS = {"smem": "LDS", "global": "LDG"}
-
-
 def k3_timed_sass(functions, mnemonics) -> None:
     """K3's timed form, each straight-line instance (smem and global, 64 and
-    192 steps): the clock reads bracket the chase (nothing that grows with
-    the steps before the first read, no branch between the reads, as many
-    loads between them as steps), and a step, the mnemonics between the
-    reads at 192 less those at 64 over 128, is one load (LDS or LDG) and at
-    most one address instruction."""
-    from collections import Counter
+    192 steps), certified by ``audit.dataflow.audit_inkernel_mem``: between
+    the clock reads as many loads as steps, each from the path's space (LDS
+    or LDG) and each taking its address from the one before, no branch.
+    Besides: nothing that grows with the steps lies before the first read,
+    and a step is one load and at most one address instruction."""
+    from repro_torch.audit import dataflow
 
-    lib = functions("chase")
-    for smem, space in ((1, "smem"), (0, "global")):
-        seen = {}
-        for n in (64, 192):
-            (body,) = [b for name, b in lib.items()
-                       if f"chase_kernelILb{smem}ELb1ELi{n}E" in name]
-            ops = mnemonics(body)
-            reads = [i for i, ln in enumerate(body) if "SR_CLOCK" in ln]
-            if not reads or len(reads) % 2:
-                fail(f"K3 timed {space} n {n}: clock reads at {reads} in its SASS")
-            lo, hi = reads[len(reads) // 2 - 1], reads[len(reads) // 2]
-            between = Counter(ops[lo + 1:hi])
-            loads = sum(c for m, c in between.items() if m.startswith(K3_LOADS[space]))
-            branches = sum(c for m, c in between.items() if m.split(".")[0] in BRANCHES)
-            if loads != n or branches:
-                fail(f"K3 timed {space} n {n}: {loads} loads and {branches} branches between "
-                     f"the clock reads (at {reads})")
-            seen[n] = (reads, between)
-        per = {m: (seen[192][1][m] - seen[64][1][m]) / 128
-               for m in seen[192][1] | seen[64][1]}
-        per = {m: c for m, c in sorted(per.items(), key=lambda kv: -kv[1]) if c}
-        load = sum(c for m, c in per.items() if m.startswith(K3_LOADS[space]))
-        other = sum(c for m, c in per.items() if not m.startswith(K3_LOADS[space]))
-        (r64, _), (r192, _) = seen[64], seen[192]
-        print(f"sass: K3 timed {space}: reads at {r64} / {r192} (n 64 / 192), no branch "
-              f"between; a step runs {sum(per.values()):.2f} instructions: "
-              + ", ".join(f"{m} {c:.2f}" for m, c in per.items()))
-        if r192[0] - r64[0] >= 1 or load != 1.0 or other > 1.0:
-            fail(f"K3 timed {space}: a step runs {per} (first read at {r64[0]} / {r192[0]}); "
-                 "it should be one load and at most one address instruction")
+    for ws, space in ((64 << 10, "smem"), (64 << 20, "global")):
+        verdict = dataflow.audit_inkernel_mem(ws, "O3")
+        if verdict.status != "audited" or f"space={space}" not in verdict.detail:
+            fail(f"K3 timed {space}: {verdict}")
+        certs = dataflow.timed_certs("chase", rf"chase_kernelILb{int(space == 'smem')}ELb1ELi(\d+)E",
+                                     (64, 192), dataflow.CHASE_LOADS[space])
+        per = dataflow.per_step(certs, (64, 192))
+        load = sum(c for m, c in per.items() if m.startswith(dataflow.CHASE_LOADS[space]))
+        other = sum(c for m, c in per.items() if not m.startswith(dataflow.CHASE_LOADS[space]))
+        print(f"sass: K3 timed {space}: reads at {list(certs[0].reads)} / {list(certs[1].reads)} "
+              f"(n 64 / 192), no branch between; a step runs {sum(per.values()):.2f} "
+              "instructions: " + ", ".join(f"{m} {c:.2f}" for m, c in per.items())
+              + f"; {verdict.status}: {verdict.detail}")
+        if certs[1].reads[0] - certs[0].reads[0] >= 1 or load != 1.0 or other > 1.0:
+            fail(f"K3 timed {space}: a step runs {per} (first read at {certs[0].reads[0]} / "
+                 f"{certs[1].reads[0]}); it should be one load and at most one address "
+                 "instruction")
 
 
 def spill_checks(build: Path) -> None:
@@ -2170,8 +2231,10 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from repro_torch import inkernel
-    from repro_torch.api.plan import named_plan
+    from repro_torch.api.plan import QUICK_OPS, named_plan
     from repro_torch.api.session import CompilePool, compile_workers_for, warm_tasks
+    from repro_torch.audit import artifacts
+    from repro_torch.core import measure
     from repro_torch.kernels import _build
     from repro_torch.kernels.common import resolve_device
 
@@ -2185,9 +2248,14 @@ def main() -> int:
     quick, table2 = named_plan("quick"), named_plan("table2")
     tasks = warm_tasks(quick, dev) + warm_tasks(table2, dev)
     (ROOT / "build").mkdir(exist_ok=True)
-    with CompilePool(compile_workers_for(dev, len(tasks)), runner=warm_and_read) as pool, \
+    with CompilePool(compile_workers_for(dev, len(tasks)),
+                     runner=artifacts.warm_and_read) as pool, \
             tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         pool.submit(tasks)
+        # the o1 phase's chains compile here while quick and table2 wait (the
+        # audit's lowering lint compiles its short CPU chains after the pool)
+        pool.local += [(measure.prepare_o1_chain, (name, n, str(dev)))
+                       for name in QUICK_OPS for n in reversed(measure._CHAIN_LENS["O1"])]
         t0 = time.perf_counter()
         build = _build.build()
         print(f"library: {build} ({', '.join(f'lib{k}.so' for k in _build.KERNELS)})")
@@ -2228,6 +2296,21 @@ def main() -> int:
         phase("memory-inkernel", t0)
 
         t0 = time.perf_counter()
+        o1_launches = run_o1(dev, db_path)
+        phase("o1", t0)
+
+        t0 = time.perf_counter()
+        run_audit(dev, db_path, str(Path(tmp) / "attribution.md"))
+        phase("audit", t0)
+        chains_o3 = {(fn.__module__, fn.__qualname__, *args) for fn, args in tasks}
+        if set(pool.futures) != chains_o3 or pool.local:
+            fail(f"compile pool: {len(pool.futures)} tasks against the {len(chains_o3)} O3 chains "
+                 f"of quick and table2; {len(pool.local)} local tasks never ran")
+        print(f"compile pool: {len(pool.futures)} tasks, the O3 chains of quick and table2 "
+              f"(none for O1 or the audit); the O1 chains took {pool.local_s:.2f} s in this "
+              "process while the workers compiled")
+
+        t0 = time.perf_counter()
         fused_launches = run_fused(dev)
         phase("fused", t0)
 
@@ -2236,7 +2319,7 @@ def main() -> int:
                  "inkernel.mem.67108864": inkernel.prepare_chase(64 << 20, device=dev)}
         rungs["inkernel.mem.67108864"].lap()
         kernels = time_kernels(dev, err, launches, table2_launches, inkernel_launches,
-                               memory_launches, memory_inkernel_launches,
+                               memory_launches, memory_inkernel_launches, o1_launches,
                                big=rungs["inkernel.mem.67108864"])
         kernels += time_fused(dev, fused_err, jamba, cases, fused_launches)
         clock_study(dev, rungs=rungs)

@@ -23,6 +23,16 @@ the card by the SM clock sandwich) at 64 KiB (from shared memory) to 64 MiB
 pairs ``inkernel.mem.<N>`` with ``mem.chase.ws<N>``; on a DB that holds the
 memory plan's rows those twins are cache hits.
 
+``python -m repro_torch audit --db DB [--lint [--lowering]] [--attribution
+PATH] [--strict]`` judges the code behind every record of a DB (PTX and SASS
+on the card, the dispatched ops at O0, AOTAutograd's graph at O1) and
+writes each verdict into the record's notes (``audit=...``);
+``characterize --audit`` attaches the verdicts as the records are measured.
+On the CPU the O0 and O1 rows get their verdicts and the O3 rows
+``unaudited:no-device-code``. Exit codes: 0 clean (or advisory-only
+without ``--strict``), 1 integrity violations under ``--strict``, 2 usage
+or IO errors.
+
 ``--plan inkernel`` times each of the 58 in-kernel rows inside the kernel
 (on the card by the SM clock sandwich) beside its dispatch-level O3 twin;
 ``--table`` then prints the pairing, dispatch against in-kernel (the
@@ -85,7 +95,48 @@ def build_parser() -> argparse.ArgumentParser:
                     help="adaptive fidelity: stop repeating a probe once its "
                          "MAD/median converges, spend the saved reps on "
                          "noisy rows (reps_eff=N in record notes)")
+    ch.add_argument("--audit", action="store_true",
+                    help="statically verify each probe's compiled code as it "
+                         "is prepared (chain count, guard accounting, "
+                         "dependent path) and attach the verdict to the "
+                         "record notes")
     ch.set_defaults(func=cmd_characterize)
+
+    au = sub.add_parser(
+        "audit",
+        help="statically verify the code behind a LatencyDB's records "
+             "(chain counts, guard accounting, dependent paths)")
+    au.add_argument("--db", default=None,
+                    help="LatencyDB JSON path to audit; verdicts are "
+                         "persisted into record notes")
+    au.add_argument("--plan", choices=PLAN_NAMES, default=None,
+                    help="restrict the audit to records the named plan "
+                         "would produce (default: every record)")
+    au.add_argument("--strict", action="store_true",
+                    help="exit 1 on any transformed verdict or lint finding "
+                         "(default: report and exit 0)")
+    au.add_argument("--recheck", action="store_true",
+                    help="re-derive verdicts even for records already "
+                         "carrying an audit= note")
+    au.add_argument("--lint", action="store_true",
+                    help="also run the static lints (guard identity)")
+    au.add_argument("--lowering", action="store_true",
+                    help="with --lint: also check that each registry row's "
+                         "expected ops appear in a short chain (O1's graph; "
+                         "O3's PTX where this process has it)")
+    for flag, what in (("--zoo", "the model zoo's opcode coverage"),
+                       ("--dataflow", "the fused kernels' dataflow certificates")):
+        au.add_argument(flag, action="store_true",
+                        help=f"with --lint: {what} (not ported yet)")
+    au.add_argument("--compile-cache", default=None, metavar="DIR",
+                    help="a persistent compile cache (not ported yet)")
+    au.add_argument("--attribution", default=None, metavar="PATH",
+                    help="write the per-op O0->O1->O3 transform attribution "
+                         "table (markdown) to PATH ('-' for stdout)")
+    au.add_argument("--attribution-ops", default="quick",
+                    help="'quick' (QUICK_OPS), 'all' (full registry), or a "
+                         "comma-separated op list for --attribution")
+    au.set_defaults(func=cmd_audit)
     return ap
 
 
@@ -112,7 +163,7 @@ def cmd_characterize(args: argparse.Namespace) -> int:
         return 2
     session = Session(db=db, device=device,
                       timer=Timer(warmup=args.warmup, reps=args.reps, device=device),
-                      adaptive=args.adaptive)
+                      adaptive=args.adaptive, audit=args.audit)
     print(f"plan '{plan.name}': {len(plan)} probes -> {args.db} "
           f"[{session.env['backend']}/{session.env['device_kind']}, "
           f"{session.env['jax_version']}]")
@@ -132,6 +183,116 @@ def cmd_characterize(args: argparse.Namespace) -> int:
             print("\n== host vs in-kernel (paper's in-pipeline method) ==")
             print(compare)
     return 1 if result.failed else 0
+
+
+def cmd_audit(args: argparse.Namespace) -> int:
+    """Static verification: lints and/or per-record audits.
+
+    Exit codes: 0 clean (or advisory-only without ``--strict``), 1 integrity
+    violations under ``--strict``, 2 usage/IO errors.
+    """
+    import os
+
+    for flag in ("zoo", "dataflow", "compile_cache"):
+        if getattr(args, flag):
+            print(f"error: --{flag.replace('_', '-')} is not ported yet (see ROADMAP.md)",
+                  file=sys.stderr)
+            return 2
+    if not (args.db or args.lint or args.attribution):
+        print("error: nothing to do: pass --db, --lint or --attribution", file=sys.stderr)
+        return 2
+    failed = 0
+
+    if args.lint:
+        from repro_torch.audit import run_lints
+
+        findings = run_lints(lowering=args.lowering)
+        if findings:
+            print(f"{len(findings)} lint finding(s):")
+            for f in findings:
+                print(f"  [{f.lint}] {f.subject}: {f.message}")
+            failed += len(findings)
+        else:
+            print("lints clean (guards" + ("+lowering)" if args.lowering else ")"))
+
+    did_db = False
+    if args.db and os.path.exists(args.db):
+        from repro_torch.audit import audit_db
+        from repro_torch.utils import parse_kv_notes
+
+        try:
+            db = LatencyDB(args.db)
+        except Exception as e:  # noqa: BLE001 - unreadable DB is a usage error
+            print(f"error: could not load DB {args.db}: {type(e).__name__}: {e}",
+                  file=sys.stderr)
+            return 2
+        skipped = 0
+        if args.plan:
+            try:
+                wanted = {(p.op, p.opt_level) for p in named_plan(args.plan)}
+            except ValueError as e:
+                print(f"error: {e}", file=sys.stderr)
+                return 2
+            # audit in place but only the plan's rows: filter via a view DB
+            sub = LatencyDB()
+            for rec in db.records():
+                if (rec.op, rec.opt_level) in wanted:
+                    sub.add(rec)
+                else:
+                    skipped += 1
+            verdicts = audit_db(sub, recheck=args.recheck)
+            for rec in sub.records():
+                kv = parse_kv_notes(rec.notes)
+                db.annotate(rec.key(), audit=kv.get("audit"),
+                            audit_transform=kv.get("audit_transform"))
+        else:
+            verdicts = audit_db(db, recheck=args.recheck)
+        db.save()
+        did_db = True
+        by_status: dict[str, int] = {}
+        for v in verdicts:
+            by_status[v.status] = by_status.get(v.status, 0) + 1
+        print(f"audited {len(verdicts)} record(s)"
+              + (f" ({skipped} outside plan '{args.plan}')" if skipped else "")
+              + ": " + ", ".join(f"{k}={v}" for k, v in sorted(by_status.items())))
+        bad = [v for v in verdicts if v.failed]
+        for v in bad:
+            print(f"  TRANSFORMED {v.op}@{v.opt_level}: {v.cause}"
+                  + (f" — {v.detail}" if v.detail else ""))
+        for v in verdicts:
+            if v.status in ("opaque", "unaudited"):
+                print(f"  {v.status.upper()} {v.op}@{v.opt_level}: {v.cause}")
+        for v in verdicts:
+            if v.status == "audited":
+                print(f"  AUDITED {v.op}@{v.opt_level}" + (f": {v.detail}" if v.detail else ""))
+        failed += len(bad)
+    elif args.db and not args.lint and not args.attribution:
+        print(f"error: DB {args.db} does not exist (nothing to audit; "
+              "pass --lint for the static checks)", file=sys.stderr)
+        return 2
+
+    if args.attribution:
+        from repro_torch.audit import write_attribution
+
+        if args.attribution_ops == "all":
+            ops = None
+        elif args.attribution_ops == "quick":
+            from repro_torch.api.plan import QUICK_OPS
+
+            ops = QUICK_OPS
+        else:
+            ops = [o.strip() for o in args.attribution_ops.split(",")]
+        db_for_attr = LatencyDB(args.db) if did_db else None
+        if args.attribution == "-":
+            n = write_attribution(sys.stdout, ops, db=db_for_attr)
+        else:
+            with open(args.attribution, "w") as f:
+                n = write_attribution(f, ops, db=db_for_attr)
+        print(f"attribution table: {n} op(s) -> {args.attribution}")
+
+    if failed and args.strict:
+        return 1
+    return 0
 
 
 def main(argv: Sequence[str] | None = None) -> int:

@@ -4,8 +4,9 @@ A :class:`Plan` is an ordered, duplicate-free tuple of probes; builders make
 the paper's sweeps, ``+`` composes plans and ``filter`` trims them. The
 algebra and the ``quick``, ``table2``, ``memory``, ``inkernel``,
 ``memory-inkernel`` and ``fused`` plans are those of ``repro.api.plan``, so
-both packages give the same ordered logical keys. The other named plans of
-the JAX package are not ported yet.
+both packages give the same ordered logical keys; ``Plan.clock_overhead``
+defaults to the three levels, O0, O1 and O3, as there. The other named
+plans of the JAX package are not ported yet.
 """
 from __future__ import annotations
 

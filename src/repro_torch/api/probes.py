@@ -35,7 +35,7 @@ from repro_torch import inkernel
 from repro_torch.core import measure, membench
 from repro_torch.core.chains import KERNEL_CHAIN_UNROLL, OpSpec, spec_by_name
 from repro_torch.core.latency_db import LatencyRecord
-from repro_torch.core.optlevels import compile_at_level
+from repro_torch.core.optlevels import compile_at_level, o1_option_string
 from repro_torch.core.timing import Measurement, Timer, sandwich_slope
 from repro_torch.kernels.alu_chain import alu_chain, alu_chain_timed
 from repro_torch.kernels.opchain import STEP_SASS
@@ -171,6 +171,10 @@ class InstructionProbe(Probe):
     def run_prepared(self, ctx: ProbeContext, prepared) -> LatencyRecord:
         m = measure.run_prepared_op(prepared, ctx.timer)
         on_card = ctx.device.type == "cuda"
+        o1 = f"o1={o1_option_string()}" if self.opt_level == "O1" else ""
+        # on the card an O1 chain replays its graph's kernels from one CUDA
+        # graph (measure.GraphedChain); O0 and O3 launch on the stream
+        graph = self.opt_level == "O1" and on_card
         if self.spec.kernel is None:
             opts = (measure.inductor_options(self.spec, ctx.device)
                     if self.opt_level == "O3" else None)
@@ -178,16 +182,17 @@ class InstructionProbe(Probe):
             notes = " ".join(filter(None, (
                 self.spec.notes,
                 opts and "inductor=" + ",".join(f"{k}:{v}" for k, v in sorted(opts.items())),
-                step and f"step_sass={step}")))
+                step and f"step_sass={step}", graph and "launch=cuda_graph", o1)))
             return self._record(ctx, m, guard=self.spec.guard, notes=notes)
         # the guard runs inside the same launch: net it with the in-kernel
         # baseline, never with an eager dispatch
-        launch = ("per-step" if self.opt_level == "O0" else
+        launch = ("per-step" + (",cuda_graph" if graph else "")
+                  if self.opt_level in ("O0", "O1") else
                   f"per-chain unroll={KERNEL_CHAIN_UNROLL}")
         step = STEP_SASS.get(self.spec.kernel) if on_card else None
         notes = " ".join(filter(None, (
             self.spec.notes, f"kernel=op_chain.{self.spec.kernel}",
-            f"launch={launch}", "guard_base=op_chain.add", step and f"step_sass={step}")))
+            f"launch={launch}", "guard_base=op_chain.add", step and f"step_sass={step}", o1)))
         return self._record(ctx, m, guard=self.spec.guard, notes=notes,
                             baseline=ctx.kernel_baseline_ns() if self.spec.guard else None)
 
@@ -210,7 +215,8 @@ class ClockOverheadProbe(Probe):
     def run_prepared(self, ctx: ProbeContext, prepared) -> LatencyRecord:
         fn, x = prepared
         m = ctx.timer.time_callable(fn, x, reps=measure._REPS[self.opt_level])
-        return self._record(ctx, m, notes="null timed region (Fig. 5 analog)")
+        o1 = f" o1={o1_option_string()}" if self.opt_level == "O1" else ""
+        return self._record(ctx, m, notes="null timed region (Fig. 5 analog)" + o1)
 
 
 class MemoryProbe(Probe):

@@ -29,6 +29,14 @@ interpreter lock. For the same reason the JAX package's compile-ahead
 thread (prepare probe N+1 while probe N times) is not ported: a Dynamo
 trace on a second thread stalls the eager dispatch the O0 rows time. The
 persistent compile cache of the JAX package is not ported yet.
+
+With ``audit=True`` each probe's compiled code is judged as soon as it is
+prepared (``repro_torch.audit``) and the verdict rides in the record's
+notes (``audit=...``); a probe that then fails carries it in its failure's
+message. On the card the chains' PTX and SASS come back from the compile
+workers that built them (``audit.artifacts.warm_and_read``, the pool's
+runner), each with its chain's name; nothing is compiled again for the
+audit, and a chain whose worker failed is ``unaudited:artifact-missing``.
 """
 from __future__ import annotations
 
@@ -42,6 +50,7 @@ import torch
 
 from repro_torch.api.plan import Plan
 from repro_torch.api.probes import Probe, ProbeContext
+from repro_torch.audit import artifacts
 from repro_torch.core import chains, measure
 from repro_torch.core.latency_db import (LatencyDB, LatencyRecord, ProbeFailure,
                                          current_environment)
@@ -111,7 +120,10 @@ class CompilePool:
     context manager it is :attr:`current`, and every :class:`Session` of
     this process warms its chains in it instead of starting its own.
     ``runner``, if given, runs each task as ``runner(function, *args)`` (a
-    caller that also reads what the task compiled)."""
+    caller that also reads what the task compiled). ``local`` holds tasks
+    that this process runs, one at a time, while a session waits on the
+    workers (the O1 chains, which compile in the process that runs them);
+    ``local_s`` sums their seconds."""
 
     current: "CompilePool | None" = None
 
@@ -121,6 +133,8 @@ class CompilePool:
         self._executor = concurrent.futures.ProcessPoolExecutor(
             max_workers=workers, mp_context=multiprocessing.get_context("spawn"))
         self.futures: dict[tuple, concurrent.futures.Future] = {}
+        self.local: list[tuple] = []
+        self.local_s = 0.0
 
     def submit(self, tasks: list[tuple]) -> list[concurrent.futures.Future]:
         out = []
@@ -131,6 +145,18 @@ class CompilePool:
                                      else self._executor.submit(self.runner, fn, *args))
             out.append(self.futures[key])
         return out
+
+    def run_local(self) -> None:
+        """Run the first task of :attr:`local` in this process. One that
+        fails only logs: the probe's prepare compiles its chain again."""
+        fn, args = self.local.pop(0)
+        t0 = time.perf_counter()
+        try:
+            fn(*args)
+        except Exception as e:  # noqa: BLE001 - advisory, as above
+            logger.warning("local task %s%s failed: %s: %s", fn.__name__, args,
+                           type(e).__name__, e)
+        self.local_s += time.perf_counter() - t0
 
     def __enter__(self) -> "CompilePool":
         CompilePool.current = self
@@ -170,12 +196,18 @@ class Session:
     force: re-measure cache hits by default (per-run ``force`` overrides).
     adaptive: True for default :class:`AdaptiveFidelity`, an instance for
         custom thresholds, or None/False to keep fixed rep counts.
+    audit: statically verify each probe's compiled code as it is prepared
+        (``repro_torch.audit``: chain count, guard accounting, dependent
+        path) and attach the verdict to the record's notes (``audit=ok`` /
+        ``audit=transformed:<cause>`` / ...). Off by default; a failed
+        verdict only flags the record — ``python -m repro_torch audit
+        --strict`` turns flags into a failing exit.
     """
 
     def __init__(self, db: LatencyDB | str | None = None,
                  device: str | torch.device | None = None,
                  timer: Timer | None = None, force: bool = False,
-                 adaptive: AdaptiveFidelity | bool | None = None):
+                 adaptive: AdaptiveFidelity | bool | None = None, audit: bool = False):
         self.device = resolve_device(device)
         self.db = db if isinstance(db, LatencyDB) else LatencyDB(path=db)
         self.timer = timer or Timer(device=self.device)
@@ -190,6 +222,7 @@ class Session:
         if adaptive is not None:
             self.timer.adaptive = adaptive
         self.force = force
+        self.audit = audit
         self.env = current_environment(self.device)
         self._baseline: dict[tuple, float] = {}
         self._clock_hz: float | None = None
@@ -297,27 +330,32 @@ class Session:
         tasks = warm_tasks([p for _, p in pending], self.device)
         workers = (0 if not tasks or CompilePool.current is not None
                    else compile_workers_for(self.device, len(tasks)))
-        own = CompilePool(workers) if workers else None
+        own = (CompilePool(workers, runner=artifacts.warm_and_read if self.audit else None)
+               if workers else None)
         pool = CompilePool.current or own
         waiting: dict[int, list] = {}
         if pool is not None and tasks:
             pool.submit(tasks)  # in this order; a probe's own submit below finds them
-            waiting = {i: fs for i, p in pending if (fs := pool.submit(p.warm_tasks(self.device)))}
+            waiting = {i: list(zip(ts, pool.submit(ts))) for i, p in pending
+                       if (ts := p.warm_tasks(self.device))}
         by_index, prepared = dict(pending), {}
         try:
             for i, probe in pending:
                 if i not in waiting:
                     prepared[i] = self._prepare(probe, ctx, stage_ns)
             while waiting:
-                landed = [i for i, fs in waiting.items() if all(f.done() for f in fs)]
+                landed = [i for i, fs in waiting.items() if all(f.done() for _, f in fs)]
                 if not landed:
                     t1 = time.perf_counter_ns()
-                    concurrent.futures.wait([f for fs in waiting.values() for f in fs],
-                                            return_when=concurrent.futures.FIRST_COMPLETED)
+                    if pool.local:  # this process's own tasks while the workers compile
+                        pool.run_local()
+                    else:
+                        concurrent.futures.wait([f for fs in waiting.values() for _, f in fs],
+                                                return_when=concurrent.futures.FIRST_COMPLETED)
                     stage_ns["warm"] += time.perf_counter_ns() - t1
                     continue
                 for i in landed:
-                    for fut in waiting.pop(i):
+                    for _, fut in waiting.pop(i):
                         self._log_warm(by_index[i], fut)
                     prepared[i] = self._prepare(by_index[i], ctx, stage_ns)
         finally:
@@ -331,6 +369,9 @@ class Session:
 
     @staticmethod
     def _log_warm(probe: Probe, fut: concurrent.futures.Future) -> None:
+        """Log a landed warm task; file the device code it read (the pool's
+        runner was ``artifacts.warm_and_read``) under the chain's name it
+        gives."""
         try:
             result = fut.result()
             logger.debug("warmed %s@%s in %.1f s: %s", probe.op, probe.opt_level,
@@ -338,22 +379,42 @@ class Session:
         except Exception as e:  # noqa: BLE001 - advisory stage, see _prepare_all
             logger.warning("compile-ahead of %s@%s failed in a worker: %s: %s",
                            probe.op, probe.opt_level, type(e).__name__, e)
+            return
+        if "ptx" in result:
+            artifacts.remember(result["chain"], result)
 
-    @staticmethod
-    def _prepare(probe: Probe, ctx: ProbeContext, stage_ns: dict) -> tuple:
-        """(what ``probe.prepare`` built, None), or (None, the exception)."""
+    def _prepare(self, probe: Probe, ctx: ProbeContext, stage_ns: dict) -> tuple:
+        """(what ``probe.prepare`` built, None, its verdict), or (None, the
+        exception, its verdict); the verdict is None without ``audit``."""
         t0 = time.perf_counter_ns()
         try:
-            return probe.prepare(ctx), None
+            return probe.prepare(ctx), None, self._audit_for(probe)
         except Exception as e:  # noqa: BLE001 - recorded as a failure when timed
-            return None, e
+            return None, e, self._audit_for(probe)
         finally:
             stage_ns["compile"] += time.perf_counter_ns() - t0
 
+    def _audit_for(self, probe: Probe):
+        """Static integrity verdict for one probe's compiled code, right
+        after ``prepare`` (its chains are loaded, their device code filed).
+        Any auditor error degrades to no verdict — auditing must never turn
+        a measurable probe into a failure."""
+        if not self.audit:
+            return None
+        try:
+            from repro_torch.audit import audit_target
+
+            return audit_target(probe.op, probe.opt_level, env=self.env)
+        except Exception as e:  # noqa: BLE001 - advisory only
+            logger.warning("audit of %s@%s errored: %s: %s", probe.op, probe.opt_level,
+                           type(e).__name__, e)
+            return None
+
     def _run_probe(self, i, probe, ctx, prepared, results, stage_ns) -> None:
         """Time one prepared probe (``prepared`` is ``(what prepare built,
-        its exception)``); record the outcome and flush it."""
-        prepared, exc = prepared
+        its exception, its verdict)``); record the outcome, with the verdict,
+        and flush it."""
+        prepared, exc, verdict = prepared
         if exc is None:
             t0 = time.perf_counter_ns()
             try:
@@ -361,6 +422,11 @@ class Session:
             except Exception as e:  # noqa: BLE001 - recorded as failure
                 exc = e
             else:
+                if verdict is not None:
+                    from repro_torch.audit import annotation
+                    kv = {k: v for k, v in annotation(verdict).items() if v is not None}
+                    rec = dataclasses.replace(rec, notes=" ".join(
+                        [rec.notes, *(f"{k}={v}" for k, v in kv.items())]).strip())
                 self.db.add(rec)
                 results[i] = ProbeResult(probe, "measured", record=rec)
                 logger.info("measured %-28s %8.1fns (±%.1f)",
@@ -368,9 +434,10 @@ class Session:
                             rec.mad_ns)
             stage_ns["time"] += time.perf_counter_ns() - t0
         if exc is not None:
+            message = str(exc) + (f" [{verdict.note()}]" if verdict is not None else "")
             failure = ProbeFailure(
                 op=probe.op, dtype=probe.dtype, opt_level=probe.opt_level,
-                error_type=type(exc).__name__, message=str(exc),
+                error_type=type(exc).__name__, message=message,
                 failed_at=timestamp(), **self.env)
             self.db.add_failure(failure)
             results[i] = ProbeResult(probe, "failed", failure=failure)

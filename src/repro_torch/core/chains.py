@@ -26,7 +26,7 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
-from repro_torch.kernels.opchain import op_chain
+from repro_torch.kernels.opchain import op_chain, op_chain_step
 
 # steps to an iteration of op_chain's loop in the O3 rows (kernel_chain_fn)
 KERNEL_CHAIN_UNROLL = 32
@@ -87,6 +87,18 @@ def kernel_chain_fn(spec: OpSpec, n: int) -> Callable[..., Any]:
 def _kernel_step(name: str) -> Callable[..., torch.Tensor]:
     """One step of an ``op_chain`` row: one kernel launch of length 1."""
     return lambda x, *ops: op_chain(x, *ops, step=name, n=1)
+
+
+def operator_form(spec: OpSpec) -> OpSpec:
+    """``spec`` with its step as one PyTorch operator where it runs through
+    ``op_chain`` (``kernels.opchain.op_chain_step``, the same launch), so
+    that Dynamo and AOTAutograd capture the step as one node (its O1 chain)
+    and a trace of its ops sees the launch as one op (the audit); any other
+    row is returned as it is."""
+    if spec.kernel is None:
+        return spec
+    name = spec.kernel
+    return dataclasses.replace(spec, step=lambda x, *ops: op_chain_step(x, list(ops), name))
 
 
 def _trunc_div(x: torch.Tensor, d) -> torch.Tensor:

@@ -25,7 +25,7 @@ except ImportError:  # pragma: no cover - non-POSIX host
 import torch
 
 from repro_torch.utils import (dump_json, load_json, logger, markdown_table,
-                               timestamp)
+                               parse_kv_notes, timestamp)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,6 +138,27 @@ class LatencyDB:
         for r in recs:
             self.add(r)
 
+    def annotate(self, key: tuple, **kv: str | None) -> LatencyRecord | None:
+        """Merge ``key=value`` tokens into a record's notes, in place.
+
+        Existing tokens with the same key are replaced; a value of ``None``
+        deletes the token. ``measured_at`` is untouched, so on a concurrent
+        ``save`` the annotated copy wins merge ties against the un-annotated
+        on-disk copy of itself (ties keep the in-memory value). Used by
+        ``repro_torch.audit`` to persist ``audit=...`` verdicts. Returns the
+        updated record, or None when the key is absent.
+        """
+        rec = self._records.get(tuple(key))
+        if rec is None:
+            return None
+        drop = set(kv)
+        kept = [tok for tok in rec.notes.split()
+                if tok.partition("=")[0] not in drop]
+        added = [f"{k}={v}" for k, v in kv.items() if v is not None]
+        rec = dataclasses.replace(rec, notes=" ".join(kept + added))
+        self.add(rec)
+        return rec
+
     def records(self) -> list[LatencyRecord]:
         return list(self._records.values())
 
@@ -157,6 +178,20 @@ class LatencyDB:
 
     def failures(self) -> list[ProbeFailure]:
         return list(self._failures.values())
+
+    def query(self, **filters: str) -> list[LatencyRecord]:
+        out = []
+        for r in self._records.values():
+            if all(getattr(r, k) == v for k, v in filters.items()):
+                out.append(r)
+        return out
+
+    def lookup_ns(self, op: str, opt_level: str = "O3", default: float | None = None,
+                  **filters: str) -> float | None:
+        recs = self.query(op=op, opt_level=opt_level, **filters)
+        if not recs:
+            return default
+        return sorted(recs, key=lambda r: r.measured_at)[-1].latency_ns
 
     # ---------------------------------------------------------------- merge
     def merge(self, *others: "LatencyDB") -> "LatencyDB":
@@ -399,6 +434,33 @@ class LatencyDB:
             {"O3": "Optimized", "O0": "Non-Optimized"}.get(lv, lv) for lv in opt_levels]
         return markdown_table(headers, rows)
 
+    def audit_status(self) -> dict[str, list[LatencyRecord]]:
+        """Records grouped by audit verdict status (from the ``audit=``
+        notes token; records never audited group under ``unaudited``)."""
+        groups: dict[str, list[LatencyRecord]] = {}
+        for r in sorted(self._records.values(),
+                        key=lambda r: (self._natural(r.op), r.opt_level)):
+            tok = parse_kv_notes(r.notes).get("audit", "unaudited")
+            groups.setdefault(tok.partition(":")[0], []).append(r)
+        return groups
+
+    def audit_markdown(self) -> str:
+        """Audit-verdict table surfacing failed and unaudited rows first."""
+        order = {"transformed": 0, "opaque": 1, "unaudited": 2, "ok": 3}
+        rows = []
+        for status, recs in sorted(self.audit_status().items(),
+                                   key=lambda kv: order.get(kv[0], 9)):
+            for r in recs:
+                kv = parse_kv_notes(r.notes)
+                tok = kv.get("audit", "unaudited")
+                cause = (tok.partition(":")[2] or
+                         kv.get("audit_transform", "") or "—")
+                rows.append([r.op, r.opt_level, r.dtype, status, cause,
+                             f"{r.net_latency_ns:.1f}"])
+        return markdown_table(
+            ["op", "opt", "dtype", "audit", "cause/transform", "net ns"],
+            rows)
+
     @staticmethod
     def _host_twin(base: str) -> str:
         """The dispatch-level row an in-kernel row pairs with.
@@ -453,6 +515,25 @@ class LatencyDB:
         return markdown_table(
             ["category", "op", "dtype", f"dispatch {opt_level} (ns)",
              "in-kernel (ns)", "in-kernel/dispatch"], rows)
+
+    def diff_markdown(self, key_a: str, key_b: str, field: str = "jax_version",
+                      opt_level: str = "O3", rel_threshold: float = 0.10) -> str:
+        """Table III analog: ops whose latency changed between two versions
+        (by default two PyTorch builds, which ``jax_version`` holds here)."""
+        a = {(r.op, r.dtype): r for r in self.query(opt_level=opt_level)
+             if getattr(r, field) == key_a}
+        b = {(r.op, r.dtype): r for r in self.query(opt_level=opt_level)
+             if getattr(r, field) == key_b}
+        rows = []
+        for k in sorted(set(a) & set(b)):
+            ra, rb = a[k], b[k]
+            if ra.latency_ns <= 0:
+                continue
+            rel = (rb.latency_ns - ra.latency_ns) / max(ra.latency_ns, 1e-9)
+            if abs(rel) >= rel_threshold:
+                rows.append([k[0], k[1], f"{ra.latency_ns:.1f}", f"{rb.latency_ns:.1f}",
+                             f"{100*rel:+.1f}%"])
+        return markdown_table(["op", "dtype", key_a, key_b, "delta"], rows)
 
     @staticmethod
     def _natural(op: str) -> tuple:

@@ -26,14 +26,15 @@ from repro_torch.core import chains
 from repro_torch.core.chains import OpSpec, chain_fn, kernel_chain_fn
 from repro_torch.core.optlevels import compile_at_level
 from repro_torch.core.timing import Measurement, Timer
+from repro_torch.kernels import ops
 from repro_torch.kernels.common import resolve_device
 from repro_torch.utils import block, logger
 
 # Chain lengths per opt level: eager dispatch costs microseconds per op, so
 # O0 uses short chains; long O3 chains push the per-op signal well above the
 # clock's noise. The slope uses min statistics (noise floor).
-_CHAIN_LENS = {"O0": (2, 10), "O3": (64, 512)}
-_REPS = {"O0": 5, "O3": 30}
+_CHAIN_LENS = {"O0": (2, 10), "O1": (64, 512), "O3": (64, 512)}
+_REPS = {"O0": 5, "O1": 30, "O3": 30}
 
 # Widened-spread retry factor when a slope comes out non-positive: the new
 # upper length is n1 + _RETRY_WIDEN * (n2 - n1), capped at the spec's
@@ -99,19 +100,98 @@ def compile_chain(spec: OpSpec, n: int, opt_level: str,
     ``device``.
 
     Rows with an ``op_chain`` step launch the kernel once per step at O0 and
-    once for the whole chain at O3; every other row is eager at O0 and
-    ``torch.compile``\\ d at O3 (compiled at its first call, with
-    :func:`inductor_options`).
+    O1 and once for the whole chain at O3; every other row is eager at O0
+    and ``torch.compile``\\ d at O1 and O3 (compiled at its first call, with
+    :func:`inductor_options` at O3). An O1 chain compiles in this process
+    and is kept for it (:func:`chain_name` keys it): a second call returns
+    the same callable, compiled once.
     """
-    if spec.kernel is not None:
-        if opt_level == "O0":
-            return chain_fn(spec, n)
-        if opt_level == "O3":
-            return kernel_chain_fn(spec, n)
-        raise NotImplementedError(f"opt level {opt_level} is not ported yet")
-    name = "chain_" + "".join(c if c.isalnum() else "_" for c in spec.name) + f"_{n}"
+    if spec.kernel is not None and opt_level == "O0":
+        return chain_fn(spec, n)
+    if spec.kernel is not None and opt_level == "O3":
+        return kernel_chain_fn(spec, n)
+    name = chain_name(spec.name, n)
+    if opt_level == "O1":
+        key = (name, torch.device(device).type)
+        if key not in _O1_CHAINS:
+            fn = compile_at_level(chain_fn(chains.operator_form(spec), n), "O1", name=name)
+            _O1_CHAINS[key] = GraphedChain(fn) if torch.device(device).type == "cuda" else fn
+        return _O1_CHAINS[key]
     return compile_at_level(chain_fn(spec, n), opt_level, name=name,
                             options=inductor_options(spec, device))
+
+
+# the O1 chains compiled in this process, by chain_name and device type
+_O1_CHAINS: dict[tuple[str, str], Callable[..., Any]] = {}
+
+
+class GraphedChain:
+    """An O1 chain on the card, its graph's kernels replayed from one CUDA
+    graph. The graph AOTAutograd traced runs one kernel an op (512 steps of
+    two ops are 1024 launches): more than a stream holds while the timer's
+    lead kernel runs, so launched one by one the host would pace the card
+    and the events would time the host. Captured once (:meth:`capture`, at
+    the first call if not before), the same kernels replay back to back
+    from one launch. Each call copies its arguments into the captured
+    inputs and returns the captured output (overwritten by the next call).
+
+    A replay runs no kernel wrapper, so it adds to the launch counts
+    (``kernels.ops.launch_counts``) what the capture recorded; the warm-up
+    and the capture themselves leave the counts as they were."""
+
+    def __init__(self, fn: Callable[..., Any]):
+        self.fn = fn
+        self.graph = None
+        self.inputs: tuple = ()
+        self.output = None
+        self.replay_launches: dict[str, int] = {}
+
+    def capture(self, *args: torch.Tensor) -> None:
+        """Compile (if not yet), warm up and capture the chain on ``args``."""
+        before = ops.launch_counts()
+        self.inputs = tuple(a.clone() for a in args)
+        stream = torch.cuda.Stream(args[0].device)
+        stream.wait_stream(torch.cuda.current_stream(args[0].device))
+        with torch.cuda.stream(stream):
+            self.fn(*self.inputs)  # compile (if not yet) and warm up
+        torch.cuda.current_stream(args[0].device).wait_stream(stream)
+        warmed = ops.launch_counts()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.output = self.fn(*self.inputs)
+        self.replay_launches = ops.launches_since(warmed)
+        ops.add_launches({k: -n for k, n in ops.launches_since(before).items()})
+
+    def __call__(self, *args: torch.Tensor) -> torch.Tensor:
+        if self.graph is None:
+            self.capture(*args)
+        for mine, a in zip(self.inputs, args):
+            if mine is not a:
+                mine.copy_(a)
+        self.graph.replay()
+        ops.add_launches(self.replay_launches)
+        return self.output
+
+
+def chain_name(row: str, n: int) -> str:
+    """The name of row ``row``'s compiled chain of length ``n`` (its code
+    object's, its Inductor kernel's prefix, its O1 graph's key)."""
+    return "chain_" + "".join(c if c.isalnum() else "_" for c in row) + f"_{n}"
+
+
+def prepare_o1_chain(name: str, n: int, device: str) -> None:
+    """Compile row ``name``'s O1 chain of length ``n`` in this process for
+    ``device`` (on the card, capture its graph too; nothing is replayed), so
+    that a session's ``prepare`` of the row at O1 finds it ready; a task a
+    session runs while it waits on its compile workers
+    (``CompilePool.local``)."""
+    spec = chains.spec_by_name(name)
+    fn = compile_chain(spec, n, "O1", device)
+    args = (spec.carry(device), *spec.operand_tensors(device))
+    if isinstance(fn, GraphedChain):
+        fn.capture(*args)
+    else:
+        _first_call(fn, *args)
 
 
 def _first_call(fn: Callable[..., Any], *args: Any) -> None:
@@ -198,10 +278,11 @@ def compile_phases() -> dict[str, float]:
 def warm_chain(name: str, opt_level: str, n: int, device: str) -> dict[str, Any]:
     """Compile the chain of registry row ``name`` at length ``n`` in this
     process and run it once. A worker process runs this to fill Inductor's
-    on-disk cache ahead of the session. Returns the seconds it took
-    (``"s"``), the seconds of each compile phase that moved
-    (``"phases"``, from :func:`compile_phases`) and the chain's result
-    (``"out"``, a Python number)."""
+    on-disk cache ahead of the session. Returns the chain's name
+    (``"chain"``, :func:`chain_name`), the seconds it took (``"s"``), the
+    seconds of each compile phase that moved (``"phases"``, from
+    :func:`compile_phases`) and the chain's result (``"out"``, a Python
+    number)."""
     before = compile_phases()
     t0 = time.perf_counter()
     spec = chains.spec_by_name(name)
@@ -210,5 +291,5 @@ def warm_chain(name: str, opt_level: str, n: int, device: str) -> dict[str, Any]
     block(out)
     seconds = time.perf_counter() - t0
     phases = {k: v - before.get(k, 0.0) for k, v in compile_phases().items()}
-    return {"s": seconds, "phases": {k: v for k, v in phases.items() if v > 0.0},
-            "out": out.item()}
+    return {"chain": chain_name(name, n), "s": seconds,
+            "phases": {k: v for k, v in phases.items() if v > 0.0}, "out": out.item()}

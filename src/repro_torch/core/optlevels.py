@@ -1,26 +1,43 @@
-"""Compiler-optimization levels: the paper's -O0/-O3 axis, for PyTorch.
+"""Compiler-optimization levels: the paper's -O0/-O1/-O3 axis, for PyTorch.
 
 * ``O0`` — eager, op by op: no fusion or simplification across ops, every
   op pays a full dispatch (and, on the card, a kernel launch).
+* ``O1`` — ``torch.compile`` with the ``aot_eager`` backend: Dynamo
+  captures the whole chain and AOTAutograd traces it into one graph of ATen
+  ops, which then run one kernel each, with no fusion and no code
+  generation. The graph is kept but the backend's optimizations are off,
+  as the JAX package's O1 keeps the jit but turns XLA's backend
+  optimizations down; the Python dispatch of each op is gone. It compiles
+  in the calling process, in seconds, with no Inductor lowering.
 * ``O3`` — ``torch.compile`` with Inductor, the full graph compiled into
   fused kernels; the counterpart of ``jax.jit`` on XLA (simplification and
   strength reduction, e.g. a division by a constant power of two becoming a
   shift, happen here).
 
-``O1`` (a reduced level) is not ported yet. For rows whose step is the
-``op_chain`` kernel the same axis is dispatch granularity: O0 launches the
-kernel once per step, O3 once for the whole chain (``core.measure``).
+For rows whose step is the ``op_chain`` kernel the same axis is dispatch
+granularity: O0 launches the kernel once per step, O1 once per step from
+the captured graph, O3 once for the whole chain (``core.measure``).
 """
 from __future__ import annotations
 
+import collections
 import copyreg
+import functools
 import pydoc
 import types
 from typing import Any, Callable
 
 import torch
 
-OPT_LEVELS = ("O0", "O3")
+OPT_LEVELS = ("O0", "O1", "O3")
+
+# what O1 passes to torch.compile: o1_option_string() states it in the notes
+O1_OPTIONS = {"backend": "aot_eager", "fullgraph": True, "dynamic": False}
+
+# the ATen ops of each graph an O1 compile traced in this process, by the
+# compiled function's name (see compile_at_level): the audit reads a chain's
+# graph here instead of tracing it again
+O1_GRAPHS: dict[str, collections.Counter] = {}
 
 
 def _own_code(fn: Callable[..., Any], name: str) -> Callable[..., Any]:
@@ -56,10 +73,36 @@ def stable_cache_keys() -> None:
     copyreg.pickle(torch.memory_format, _reduce_memory_format)
 
 
+def o1_option_string() -> str:
+    """O1's settings, as the rows measured at O1 state them (``o1=``)."""
+    return ",".join(f"{k}:{v}" for k, v in O1_OPTIONS.items())
+
+
+def graph_ops(gm: torch.fx.GraphModule) -> collections.Counter:
+    """The ATen ops of a traced graph, by overload name
+    (``aten.add.Tensor``), each with its count."""
+    return collections.Counter(str(node.target) for node in gm.graph.nodes
+                               if node.op == "call_function")
+
+
+def _o1_backend(name: str) -> Callable[..., Any]:
+    """``aot_eager`` whose forward compiler, the nop that runs the graph op
+    by op, also keeps the graph's ATen ops in :data:`O1_GRAPHS`."""
+    from torch._dynamo.backends.debugging import aot_eager, boxed_nop
+
+    def forward(gm: torch.fx.GraphModule, example_inputs: list) -> Callable[..., Any]:
+        O1_GRAPHS[name] = graph_ops(gm)
+        return boxed_nop(gm, example_inputs)
+
+    return functools.partial(aot_eager, fw_compiler=forward)
+
+
 def compile_at_level(fn: Callable[..., Any], level: str, name: str = "chain",
                      options: dict[str, Any] | None = None) -> Callable[..., Any]:
-    """Return ``fn`` at the requested optimization level. O3 compiles lazily,
-    at the first call; ``options`` adds Inductor options to it."""
+    """Return ``fn`` at the requested optimization level. O1 and O3 compile
+    lazily, at the first call; ``options`` adds Inductor options to O3.
+    ``name`` names the compiled code (and O1's graph in
+    :data:`O1_GRAPHS`)."""
     if level == "O0":
         return fn  # eager dispatch
     if level == "O3":
@@ -73,5 +116,6 @@ def compile_at_level(fn: Callable[..., Any], level: str, name: str = "chain",
                              fullgraph=True, dynamic=False,
                              options={"compile_threads": 1, **(options or {})})
     if level == "O1":
-        raise NotImplementedError("opt level O1 is not ported yet (see ROADMAP)")
+        return torch.compile(_own_code(fn, name), backend=_o1_backend(name),
+                             fullgraph=True, dynamic=False)
     raise ValueError(f"unknown opt level {level!r}; choose from {OPT_LEVELS}")

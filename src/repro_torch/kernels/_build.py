@@ -6,7 +6,9 @@ under ``build/repro_torch_kernels/<hash of the sources and flags>/`` at the
 root of the checkout. All sources are compiled together, one ``nvcc`` each,
 the first time any kernel is asked for; a build directory appears only
 complete (it is built under a temporary name and renamed), so concurrent
-processes never load half a build. Nothing here runs at import.
+processes never load half a build. Each library keeps its PTX beside the
+SASS (``code=compute_90a``), which the audit reads with ``cuobjdump -ptx``.
+Nothing here runs at import.
 """
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 KERNELS = ("alu_chain", "op_chain", "op_chain_timed", "chase", "rmsnorm",
            "flash_attention", "flash_decode", "mamba_scan")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a",
+              "-gencode", "arch=compute_90a,code=compute_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()

@@ -430,6 +430,85 @@ def test_cli_defaults_to_the_card(dev, tmp_path, capsys):
     assert {r["backend"] for r in blob["records"]} == {"cuda"}
 
 
+# ------------------------------------------------------------ the audit
+@pytest.mark.parametrize("name,status,cause", [
+    ("add", "ok", ""), ("div.s.regular", "ok", "strength-reduction"),
+    ("not", "transformed", "dead-code-eliminated"), ("popc", "ok", "")])
+def test_audit_of_o3_chains_on_the_card(dev, name, status, cause, monkeypatch):
+    """An O3 row's verdict from the PTX and SASS of its own chains,
+    compiled here at short lengths as a compile worker compiles them: add's
+    chain is sound, div.s.regular's strength-reduced as declared, not's
+    folded by LLVM (two steps are one add of a constant), popc's K2 loop
+    form sound."""
+    from repro_torch.audit import artifacts, audit_spec
+    from repro_torch.core.latency_db import current_environment
+
+    monkeypatch.setitem(measure._CHAIN_LENS, "O3", (4, 8))
+    spec = spec_by_name(name)
+    if spec.kernel is None:
+        for n in (4, 8):  # what the compile pool's runner hands back, filed by its name
+            found = artifacts.warm_and_read(measure.warm_chain, name, "O3", n, str(dev))
+            artifacts.remember(found["chain"], found)
+    v = audit_spec(spec, "O3", env=current_environment(dev))
+    assert (v.status, v.cause) == (status, cause), v
+
+
+@pytest.mark.parametrize("op,status,cause,detail", [
+    ("inkernel.add", "audited", "", "step=IMAD.IADDx1+LOP3.LUTx1"),
+    ("inkernel.bfi", "transformed", "dead-code-eliminated", ""),
+    ("inkernel.mem.65536", "audited", "", "LDSx1"),
+    ("inkernel.mem.1048576", "audited", "", "LDG"),
+    ("kernel.alu_chain.fma", "audited", "", "step=FFMAx1"),
+    ("mem.chase.ws2097152", "ok", "", "one ld.global.ca a step")])
+def test_audit_of_k1_k3_on_the_card(dev, op, status, cause, detail):
+    """K1-K3's compiled code opened: K2's timed add serialized, its bfi
+    folded by ptxas; K3's timed chase one dependent LDS (64 KiB) or LDG
+    (1 MiB) a step; K1's fma chain one FFMA a step; K3's global loop one
+    ld.global.ca a step."""
+    from repro_torch.audit import audit_target
+    from repro_torch.core.latency_db import current_environment
+
+    v = audit_target(op, "O3", env=current_environment(dev))
+    assert (v.status, v.cause) == (status, cause) and detail in v.detail, v
+
+
+def test_o1_chain_on_the_card_equals_eager_and_is_timed(dev, tmp_path):
+    """O1 on the card: the graph's kernels replayed from one CUDA graph give
+    the eager chain's result; the row is timed by events and says so, and
+    names the graph it replays from. Capturing popc's chain counts no
+    launch; each replay counts its n launches of op_chain."""
+    from repro_torch.api.plan import Plan
+    from repro_torch.kernels.ops import launch_counts
+    from repro_torch.kernels.opchain import op_chain
+    from repro_torch.utils import parse_kv_notes
+
+    spec = spec_by_name("popc")
+    measure.prepare_o1_chain("popc", 37, str(dev))  # compiled and captured, not replayed
+    before = launch_counts()
+    fn = measure.compile_chain(spec, 37, "O1", dev)
+    fn.capture(spec.carry(dev), *spec.operand_tensors(dev))  # a second capture: no count
+    assert launch_counts() == before
+    fn(spec.carry(dev), *spec.operand_tensors(dev))
+    fn(spec.carry(dev), *spec.operand_tensors(dev))
+    assert op_chain.launches - before["op_chain"] == 2 * 37
+    for name in ("add", "popc", "add.bfloat16"):
+        spec = spec_by_name(name)
+        args = (spec.carry(dev), *spec.operand_tensors(dev))
+        for n in (64, 512):
+            got = measure.compile_chain(spec, n, "O1", dev)(*args)
+            want = measure.chains.chain_fn(spec, n)(*args)
+            assert torch.equal(got.reshape(1).view(torch.uint8),
+                               want.reshape(1).view(torch.uint8)), (name, n)
+    plan = Plan.instructions(ops=("add", "popc"), opt_levels=("O1",)) + Plan.clock_overhead(("O1",))
+    result = Session(db=str(tmp_path / "db.json"), device=dev, audit=True).run(plan)
+    assert not result.failed, [r.failure for r in result.failed]
+    for r in result.results:
+        kv = parse_kv_notes(r.record.notes)
+        assert kv["clock"] == "events" and kv["audit"] == "ok" and "o1" in kv, kv
+        assert kv.get("launch") == {"add": "cuda_graph", "popc": "per-step,cuda_graph",
+                                    "clock_overhead": None}[r.record.op], kv
+
+
 # ------------------------------------------------------------ K4-K7
 DTYPES = [torch.float32, torch.bfloat16]
 

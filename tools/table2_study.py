@@ -45,6 +45,7 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
 import chip_smoke  # noqa: E402
+from repro_torch.audit import artifacts  # noqa: E402
 
 VARIANTS = {"none": {},
             "no_upcast": {"triton.codegen_upcast_to_fp32": False},
@@ -185,10 +186,10 @@ def part_dump(dev, pool, dump: dict) -> None:
 
     for name in ("not", "bfi", "mul24", "min"):
         spec = chains.spec_by_name(name)
-        before = {id(m) for m in chip_smoke.loaded_inductor_modules()}
+        before = {id(m) for m in artifacts.loaded_inductor_modules()}
         _, codes = run_and_get_code(measure.compile_chain(spec, 64, "O3", dev), spec.carry(dev),
                                     *spec.operand_tensors(dev))
-        cubins = chip_smoke.triton_cubins([m for m in chip_smoke.loaded_inductor_modules()
+        cubins = artifacts.triton_cubins([m for m in artifacts.loaded_inductor_modules()
                                            if id(m) not in before])
         ptx = [p.read_text() for c in cubins for p in c.parent.glob("*.ptx")]
         dump.setdefault("dump", {})[name] = {"code": codes, "ptx": ptx}
@@ -221,7 +222,7 @@ def part_half(dev, pool, dump: dict, variants=tuple(VARIANTS)) -> None:
     t0 = time.perf_counter()
     rows = [s for s in chains.default_registry() if s.dtype in measure.HALF_DTYPES]
     lens = measure._CHAIN_LENS["O3"]
-    tasks = {(s.name, n, v): pool._executor.submit(chip_smoke.warm_and_read, compile_variant,
+    tasks = {(s.name, n, v): pool._executor.submit(artifacts.warm_and_read, compile_variant,
                                                    s.name, n, v, str(dev))
              for v in variants for s in rows for n in lens
              if v != "none" or s.name.startswith("add.")}
@@ -265,7 +266,7 @@ def main() -> int:
     if "k2" in parts:
         part_k2()
     with CompilePool(compile_workers_for(dev, 1 << 10),
-                     runner=chip_smoke.warm_and_read) as pool:
+                     runner=artifacts.warm_and_read) as pool:
         if "budget" in parts:
             part_budget(dev, pool, dump)
         if "half" in parts:
