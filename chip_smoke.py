@@ -137,7 +137,28 @@ Phases, each of which must pass:
    rmsnorm row may end as a NoisySlopeError failure (its row blocks run in
    parallel, so its slope is near the clock's resolution), and the script
    prints which;
-11. time each kernel, its plain version, its bound (the larger of bytes
+11. ``serve``: ``python -m repro_torch.launch.serve``'s ``main`` with
+   ``--arch jamba-v0.1-52b --full --periods 1 --kernels`` (Jamba-v0.1 at
+   full width, one period: 1 attention and 7 Mamba layers, 4 MoE and 4
+   dense FFNs, 13.30 B parameters in bfloat16, random from a seed; its 8
+   requests, 32 new tokens, greedy), then 8 ragged prompts of 256-2048
+   tokens through the same Engine, the launch counts set to 0 just before
+   and read just after: K5 launched once and K7 seven times a prefill, no
+   other kernel; then, on the same weights at batch 2 x 512, each K5 and K7
+   call of one kernel-path prefill against its plain version on that call's
+   inputs (the row-scaled limits above; K7's final state too), and the
+   prefill logits and the first decode step's logits against the plain
+   path's (plain attention, the chunked scan), both paths on the kernel
+   path's expert choices: no farther from them than the yardstick (the
+   kernel path with PyTorch's flash attention in place of K5) is, in units
+   of 2^-4 * (|want| + rms(row)), or within that; the decode step from a
+   zero Mamba state (R3) must be farther (a control); the tokens whose own
+   choice differed and the plain path on its own choices are printed. It
+   prints prefill ms, decode ms a token, tokens/s, the peak memory
+   allocated, the parameters and their bytes, and the card's name and
+   power limit; nothing in it compiles through torch.compile (Dynamo's
+   frame count must not move). The model is freed before the next phase;
+12. time each kernel, its plain version, its bound (the larger of bytes
    and operations; K5 float32's operations at the least of float32 FMAs,
    3xTF32 and 3xBF16 on the tensor cores, the choice printed; K7's at its
    float32 operations, its exponentials on the SFU alone printed beside
@@ -161,8 +182,9 @@ Phases, each of which must pass:
    256 MiB of other data went through L2 before each launch, print the
    calibrated SM clock, and time op_chain's loop: each step's time with 1
    and with 32 steps to an iteration;
-12. print the ``{"kernels": [...]}`` line (each kernel with the design each
-   dtype runs), the card's name and power limit, and, last, ``{"ok": true,
+13. print the ``{"kernels": [...]}`` line (each kernel with the design each
+   dtype runs; K4-K7's launches summed over the fused run and phase
+   serve), the card's name and power limit, and, last, ``{"ok": true,
    "device": {...}}``.
 
 It exits non-zero, printing no result, when no CUDA card is visible or the
@@ -171,6 +193,7 @@ repository's sources are missing.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import importlib
 import io
 import json
@@ -497,15 +520,10 @@ def check_chase(dev: torch.device) -> None:
           "budget and an unknown path raise")
 
 def row_scaled_ratio(got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
-    """The largest |got - want| / (tol * (|want| + rms(want's row))), a row
-    being the last dimension; an element whose limit is 0 (an all-zero
-    row) must match exactly. Above 1 the comparison fails."""
-    g, w = got.float(), want.float()
-    limit = tol * (w.abs() + w.pow(2).mean(dim=-1, keepdim=True).sqrt())
-    err = (g - w).abs()
-    ratio = torch.where(limit > 0, err / limit.clamp_min(1e-38),
-                        torch.where(err > 0, math.inf, 0.0))
-    return float(ratio.max())
+    """``models.pathcheck.row_scaled_ratio``: the largest |got - want| /
+    (tol * (|want| + rms(want's row))). Above 1 the comparison fails."""
+    from repro_torch.models.pathcheck import row_scaled_ratio as ratio
+    return ratio(got, want, tol)
 
 
 def hold(label: str, got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
@@ -1465,6 +1483,215 @@ def run_fused(dev: torch.device) -> dict[str, int]:
     return launches
 
 
+# Phase serve: the launcher's command line (Jamba-v0.1 at full width, one
+# period of its 8 layers, prefill through K5 and K7; the launcher's own 8
+# requests of 4-15 tokens, 32 new tokens each, greedy), then 8 ragged prompts
+# of 256-2048 tokens through the same Engine, every K5 and K7 call of both
+# held against its plain version; then the kernel path against the plain
+# path layer by layer at batch 2 x 512 tokens (models.pathcheck: every layer
+# output and the logits within LAYER_TOL = 2^-5 * (|want| + rms(row)), each
+# Mamba state within STATE_TOL = 2^-13; PERF.md section 2).
+SERVE_ARGV = ["--arch", "jamba-v0.1-52b", "--full", "--periods", "1", "--kernels",
+              "--device", "cuda:0"]
+SERVE_LONG = dict(requests=8, min_len=256, max_len=2048, max_new=32)
+SERVE_CHECK = (2, 512)
+# one prefill launches K5 once (the attention layer) and K7 once a Mamba layer
+SERVE_PER_PREFILL = {"flash_attention": 1, "mamba_scan": 7}
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def recording_kernels(calls: list):
+    """Route the models' K5 and K7 calls (``kernels.ops.flash_attention`` and
+    ``kernels.ops.mamba_scan``, looked up at call time) through a recorder
+    that launches the kernel and keeps (name, args, kwargs, result)."""
+    from repro_torch.kernels import ops
+
+    real = {"flash_attention": ops.flash_attention, "mamba_scan": ops.mamba_scan}
+
+    def recorder(name):
+        def call(*args, **kw):
+            out = real[name](*args, **kw)
+            calls.append((name, args, kw, out))
+            return out
+        return call
+
+    try:
+        for name in real:
+            setattr(ops, name, recorder(name))
+        yield calls
+    finally:
+        for name, fn in real.items():
+            setattr(ops, name, fn)
+
+
+def run_serve(dev: torch.device) -> dict[str, int]:
+    """Phase serve: ``launch.serve`` through its ``main`` (SERVE_ARGV) and the
+    long ragged prompts through its Engine, the launch counts set to 0 just
+    before and read just after (K5 and K7 must have run once and seven times
+    a prefill, no other kernel), every K5 and K7 call of that run recorded
+    (:func:`recording_kernels`) and then held against its plain version on
+    its own inputs (:func:`hold_serve_calls`); then the two paths against
+    each other (:func:`check_serve_paths`). No Inductor compile may run
+    (Dynamo's frame count is read before and after). Frees the model.
+    Returns the main path's launches."""
+    import gc
+
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+
+    frames = torch._dynamo.utils.counters["frames"]["total"]
+    calls = []
+    zero_counts()
+    with recording_kernels(calls):
+        eng = serve.main(SERVE_ARGV)
+        n_launcher = len(calls)
+        model, cfg = eng.model, eng.cfg
+        rng = np.random.RandomState(0)
+        lo, hi = SERVE_LONG["min_len"], SERVE_LONG["max_len"]
+        prompts = [rng.randint(1, cfg.vocab_size, size=n).tolist() for n in
+                   [lo, hi] + list(rng.randint(lo, hi + 1, SERVE_LONG["requests"] - 2))]
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out = eng.generate(prompts, max_new=SERVE_LONG["max_new"])
+        wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_params = transformer.n_params(model)
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    want = {k: 2 * n for k, n in SERVE_PER_PREFILL.items()}  # the launcher's and this one
+    ran = {k: v for k, v in launches.items() if v and not k.startswith("chase/")}
+    if ran != want:
+        fail(f"serve: kernels launched {ran}, want {want} (K5 once and K7 seven times a "
+             "prefill, nothing else)")
+    if out.tokens.shape != (len(prompts), SERVE_LONG["max_new"]) or not (
+            (out.tokens >= 0) & (out.tokens < cfg.vocab_size)).all():
+        fail(f"serve: bad tokens {out.tokens.shape}")
+    kept = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+            for _, args, _, got in calls[n_launcher:]
+            for t in (*args, *(got if isinstance(got, tuple) else (got,)))}
+    lens = [len(p) for p in prompts]
+    print(f"serve: long prompts: {len(prompts)} requests of {lens} tokens (padded to "
+          f"{max(lens)}), {SERVE_LONG['max_new']} new tokens each, greedy: prefill "
+          f"{out.prefill_s * 1e3:.2f} ms, decode {out.decode_s * 1e3 / (out.steps - 1):.3f} ms "
+          f"a token, {out.tokens.size / wall:.1f} tokens/s, peak memory allocated {peak} B "
+          f"(with the {sum(kept.values())} B of its K5 and K7 calls' inputs and outputs kept "
+          f"for the check); {cfg.name} at {cfg.n_layers} layers: {n_params} parameters, "
+          f"{nbytes} B ({cfg.param_dtype}); launches {ran}; card {card()}")
+    print(f"serve: req0 of the long prompts: {out.tokens[0].tolist()}")
+
+    with torch.no_grad():
+        hold_serve_calls(calls, n_launcher)
+        del calls
+        check_serve_paths(eng, rng, dev)
+    compiled = torch._dynamo.utils.counters["frames"]["total"] - frames
+    print(f"serve: Dynamo frames compiled in this phase: {compiled}")
+    if compiled:
+        fail(f"serve: {compiled} frames went through torch.compile; the phase runs eagerly")
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def hold_serve_calls(calls: list, n_launcher: int) -> None:
+    """Hold each recorded K5 and K7 call of the main path against its plain
+    version on that call's inputs, under ROW_TOL (K7's final state too):
+    the launcher's prefill (``calls[:n_launcher]``), then the long
+    prompts'. K5's plain version runs a batch row at a time (its float32
+    scores at 8 x 2048 tokens would take 4 GiB)."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.mamba_scan import mamba_scan_plain
+
+    names = [c[0] for c in calls]
+    per = ["flash_attention"] + ["mamba_scan"] * 7
+    if names != per * 2 or n_launcher != len(per):
+        fail(f"serve: the main path made the calls {names}, want {per} twice")
+    for i, (name, args, kw, got) in enumerate(calls):
+        run = "launcher" if i < n_launcher else "long prompts"
+        if name == "flash_attention":
+            want = torch.cat([flash_attention_plain(*(a[r:r + 1] for a in args), **kw)
+                              for r in range(args[0].shape[0])])
+            hold(f"serve {run} K5 call q{list(args[0].shape)} {args[0].dtype}", got, want)
+        else:
+            y_want, h_want = mamba_scan_plain(*args, **kw)
+            hold(f"serve {run} K7 call {i % len(per)} x{list(args[0].shape)} chunk "
+                 f"{kw.get('chunk')}", got[0], y_want)
+            hold(f"serve {run} K7 call {i % len(per)}, final state h", got[1], h_want)
+    print(f"serve: {len(calls)} K5 and K7 calls of the main path held against their plain "
+          "versions on their own inputs")
+
+
+def check_serve_paths(eng, rng: np.random.RandomState, dev: torch.device) -> None:
+    """Phase serve's path-vs-path check at SERVE_CHECK, layer by layer
+    (``models.pathcheck``): every layer of a prefill and of the first decode
+    step after it, on the kernel path and on the plain path (plain
+    attention, the chunked scan), each given the plain path's input and the
+    same expert choices; each output and the logits within LAYER_TOL, each
+    Mamba state within STATE_TOL. Three controls must fail it: K7 without
+    its D skip, K7 handing back the state one step short, and the decode
+    step from zero Mamba states (R3)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import pathcheck
+
+    model, cfg = eng.model, eng.cfg
+    b, s = SERVE_CHECK
+    toks = torch.from_numpy(rng.randint(1, cfg.vocab_size, (b, s + 1))).to(dev)
+    kern = eng.rt
+    plain = dataclasses.replace(kern, attn_impl="plain", use_pallas=False)
+    rows, ck, cp = pathcheck.prefill_layers(model, kern, plain, toks[:, :s])
+    rows += pathcheck.decode_layers(model, ck, cp, toks[:, s:], s, kern, plain)
+    for r in rows:
+        cells = [f"output {r['out']:.3f}"]
+        if r["cache"] is not None:
+            cells.append(f"KV/conv cache {r['cache']:.3f}")
+        if r["state"] is not None:
+            cells.append(f"Mamba state {r['state']:.3f} (of 2^-13)")
+        print(f"serve: layer check {r['step']} {r['layer']} {r['kind'] or ''}: "
+              f"{', '.join(cells)} of the limit 2^-5 * (|want| + rms(row))")
+    worst = max(rows, key=lambda r: r["worst"])
+    print(f"serve: layer check at {b} x {s}: {len(rows)} rows, worst {worst['worst']:.3f} of "
+          f"its limit ({worst['step']} {worst['layer']})")
+    if worst["worst"] > 1.0:
+        fail(f"serve: the kernel path's {worst['step']} {worst['layer']} is off the plain "
+             f"path's by {worst['worst']:.3f} of its limit")
+
+    real = ops.mamba_scan
+
+    def no_skip(x, dt, A, B, C, D, **kw):
+        return real(x, dt, A, B, C, torch.zeros_like(D), **kw)
+
+    def short_state(x, dt, A, B, C, D, **kw):
+        y, _ = real(x, dt, A, B, C, D, **kw)
+        cut = [t[:, :-1].contiguous() for t in (x, dt, B, C)]
+        return y, real(cut[0], cut[1], A, cut[2], cut[3], D, **kw)[1]
+
+    controls = {}
+    for label, fault in (("K7 without its D skip", no_skip),
+                         ("K7's final state one step short", short_state)):
+        ops.mamba_scan = fault
+        try:
+            controls[label] = pathcheck.prefill_layers(model, kern, plain, toks[:, :s])[0]
+        finally:
+            ops.mamba_scan = real
+    controls["the decode step from zero Mamba states (R3)"] = pathcheck.decode_layers(
+        model, pathcheck.zero_states(ck), cp, toks[:, s:], s, kern, plain)
+    for label, rs in controls.items():
+        bad = max(rs, key=lambda r: r["worst"])
+        print(f"serve: control, {label}: worst {bad['worst']:.3f} of its limit ({bad['step']} "
+              f"{bad['layer']}) -> {'REJECTED' if bad['worst'] > 1 else 'passed'}")
+        if bad["worst"] <= 1.0:
+            fail(f"serve: the control '{label}' passes the layer check: it cannot tell a "
+                 "sound K7 from an unsound one")
+
+
 def fused_work(name: str, args: tuple, kw: dict) -> tuple[int, int, float, str]:
     """(bytes, operations, the operations' least time in s, how it was
     taken) of one call: each input read once and each output written once;
@@ -1548,11 +1775,12 @@ def library_call(name: str, args: tuple, kw: dict):
 
 
 def time_fused(dev: torch.device, err: dict, jamba: dict, cases: dict,
-               launches: dict) -> list[dict]:
+               launches: dict, serve_launches: dict) -> list[dict]:
     """Phase 5, K4-K7: the kernel (CUDA events behind a lead), its plain
     version (wall time to completion), its bound and the library call, at
     the fused plan's larger unit workload (n = 6) and at the Jamba case
-    (and at the second case of JAMBA_TIMED_MORE)."""
+    (and at the second case of JAMBA_TIMED_MORE); its launches summed over
+    the fused run and phase serve (both also by phase)."""
     from repro_torch.core.timing import Timer
     from repro_torch.inkernel import (FUSED_KERNELS, FUSED_LENS, build_fused, fused_kwargs,
                                       unit_bytes)
@@ -1603,11 +1831,12 @@ def time_fused(dev: torch.device, err: dict, jamba: dict, cases: dict,
             _, margs, mkw = cases[mlabel]
             extra[key] = measure(name, margs, mkw, f"Jamba {mlabel}")
             extra[key].update(jamba[mlabel], shape=mlabel)
-        print(f"{name}: {launches[name]} launches on the fused path")
+        by_phase = {"fused": launches[name], "serve": serve_launches.get(name, 0)}
+        print(f"{name}: {sum(by_phase.values())} launches on the main path {by_phase}")
         out.append({"name": name, "route": "cuda",
                     "source": f"src/repro_torch/csrc/{name}.cu",
                     "replaces": replaces[name], "design": designs(name),
-                    "launches": launches[name],
+                    "launches": sum(by_phase.values()), "launches_by_phase": by_phase,
                     "max_abs_err": err[name], **unit, "jamba": big, **extra})
     return out
 
@@ -2315,23 +2544,24 @@ def main() -> int:
         phase("fused", t0)
 
         t0 = time.perf_counter()
+        serve_launches = run_serve(dev)
+        phase("serve", t0)
+
+        t0 = time.perf_counter()
         rungs = {"inkernel.mem.65536 (smem)": inkernel.prepare_chase(64 << 10, device=dev),
                  "inkernel.mem.67108864": inkernel.prepare_chase(64 << 20, device=dev)}
         rungs["inkernel.mem.67108864"].lap()
         kernels = time_kernels(dev, err, launches, table2_launches, inkernel_launches,
                                memory_launches, memory_inkernel_launches, o1_launches,
                                big=rungs["inkernel.mem.67108864"])
-        kernels += time_fused(dev, fused_err, jamba, cases, fused_launches)
+        kernels += time_fused(dev, fused_err, jamba, cases, fused_launches, serve_launches)
         clock_study(dev, rungs=rungs)
         loop_study(dev)
         phase("timing", t0)
     phase("total", t_all)
 
     print(json.dumps({"kernels": kernels}))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    print(card())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

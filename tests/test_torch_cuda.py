@@ -722,3 +722,61 @@ def test_fused_plan_runs_every_kernel_on_the_card(dev, tmp_path):
         assert r.probe.name == "rmsnorm" and r.failure.error_type == "NoisySlopeError"
     for rec in result.records():
         assert rec.notes.startswith("cuda fused kernel lens=2-6 unit_bytes=")
+
+
+# ------------------------------------------------------------------ serving
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "granite-3-8b"])
+def test_serving_kernel_path_holds_against_the_plain_path(dev, arch, monkeypatch):
+    """The smoke config's prefill through K5 (and K7) launches K5 once an
+    attention layer and K7 once a Mamba layer. Layer by layer
+    (``models.pathcheck``: each layer of both paths given the plain path's
+    input and the same expert choices), every layer's output, its caches,
+    the logits and the first decode step stay within LAYER_TOL and
+    STATE_TOL; a K7 without its D skip and the decode step from zero Mamba
+    states (R3) do not."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ops import launch_counts, launches_since
+    from repro_torch.models import pathcheck, transformer
+    from repro_torch.models.config import Runtime
+
+    cfg = get(arch).smoke
+    model = transformer.init_lm(cfg, seed=0, device=dev)
+    kern = Runtime(mamba_chunk=16, attn_impl="pallas", use_pallas=True)
+    plain = dataclasses.replace(kern, attn_impl="plain", use_pallas=False)
+    g = torch.Generator().manual_seed(0)
+    toks = torch.randint(1, cfg.vocab_size, (2, 97), generator=g).to(dev)
+    before = launch_counts()
+    transformer.prefill(model, kern, tokens=toks[:, :96])
+    layers = [m for m, _ in cfg.layer_list()]
+    want = {"flash_attention": layers.count("attn"), "mamba_scan": layers.count("mamba")}
+    assert launches_since(before) == {k: n for k, n in want.items() if n}
+    rows, ck, cp = pathcheck.prefill_layers(model, kern, plain, toks[:, :96])
+    rows += pathcheck.decode_layers(model, ck, cp, toks[:, 96:], 96, kern, plain)
+    assert max(r["worst"] for r in rows) <= 1.0, rows
+    if "mamba" not in layers:
+        return
+    real = ops.mamba_scan
+    with monkeypatch.context() as m:
+        m.setattr(ops, "mamba_scan", lambda x, dt, A, B, C, D, **kw: real(
+            x, dt, A, B, C, torch.zeros_like(D), **kw))
+        no_skip, _, _ = pathcheck.prefill_layers(model, kern, plain, toks[:, :96])
+    assert max(r["out"] for r in no_skip) > 1.0
+    zero = pathcheck.decode_layers(model, pathcheck.zero_states(ck), cp, toks[:, 96:], 96,
+                                   kern, plain)
+    assert max(r["out"] for r in zero) > 1.0
+
+
+def test_serve_launcher_runs_the_kernels_on_the_card(dev, capsys):
+    from repro_torch.kernels.ops import launch_counts, launches_since
+    from repro_torch.launch import serve
+
+    before = launch_counts()
+    eng = serve.main(["--arch", "jamba-v0.1-52b", "--kernels", "--requests", "3",
+                      "--max-new", "4"])
+    assert eng.device == dev
+    assert launches_since(before) == {"flash_attention": 1, "mamba_scan": 7}
+    out = capsys.readouterr().out
+    assert "kernels on" in out and "peak memory allocated" in out
