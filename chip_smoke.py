@@ -12,7 +12,12 @@ are checked, and each plan's session waits only for its own chains. Every
 record made on the card must count ``cycles`` on the SM clock its notes
 name (``cycles_at=sm_clock64@<MHz>``).
 
-Phases, each of which must pass:
+Phases, each of which must pass, in this order but for 10-12 (fused,
+serve and archs), which need no compiled chain and run right after phase
+2, while the compile workers build the plans' chains (their host-side
+times, prefill and decode ms, are taken beside those compiles; the card's
+are its own). Phase 13 times the kernels after the pool has stopped, and
+K1-K3's launches on the plans are counted in after it:
 
 1. build the CUDA kernels from ``src/repro_torch/csrc`` (into ``build/``),
    one nvcc per source, all at once, print ptxas's register and spill
@@ -130,8 +135,8 @@ Phases, each of which must pass:
    It prints every verdict, the counts by status and by family and the
    attribution rows of the ``QUICK_OPS``, and then that the compile pool
    ran only the 130 O3 chains of quick and table2 and the seconds the O1
-   chains took beside them; the lowering lint compiles its 72 short O1
-   chains (on the CPU) here, after the pool;
+   chains took beside them; the lowering lint's 72 short O1 chains (on the
+   CPU) compiled in this process while the sessions waited on the pool;
 10. the same for ``characterize --plan fused``: it must launch K4-K7 and
    measure the flash_attention, flash_decode and mamba_scan rows; the
    rmsnorm row may end as a NoisySlopeError failure (its row blocks run in
@@ -144,21 +149,42 @@ Phases, each of which must pass:
    requests, 32 new tokens, greedy), then 8 ragged prompts of 256-2048
    tokens through the same Engine, the launch counts set to 0 just before
    and read just after: K5 launched once and K7 seven times a prefill, no
-   other kernel; then, on the same weights at batch 2 x 512, each K5 and K7
-   call of one kernel-path prefill against its plain version on that call's
-   inputs (the row-scaled limits above; K7's final state too), and the
-   prefill logits and the first decode step's logits against the plain
-   path's (plain attention, the chunked scan), both paths on the kernel
-   path's expert choices: no farther from them than the yardstick (the
-   kernel path with PyTorch's flash attention in place of K5) is, in units
-   of 2^-4 * (|want| + rms(row)), or within that; the decode step from a
-   zero Mamba state (R3) must be farther (a control); the tokens whose own
-   choice differed and the plain path on its own choices are printed. It
+   other kernel; each K5 and K7 call of that run against its plain version
+   on that call's inputs (the row-scaled limits above; K7's final state
+   too); then, on the same weights at batch 2 x 512, the kernel path
+   against the plain path (plain attention, the chunked scan) layer by
+   layer (``models.pathcheck``: each layer of a prefill and of the first
+   decode step given the plain path's input and the same expert choices),
+   outputs within 2^-5 * (|want| + rms(row)) and Mamba states within
+   2^-13, with three controls that must fail it (K7 without its D skip, its
+   state one step short, the decode step from zero Mamba states: R3). It
    prints prefill ms, decode ms a token, tokens/s, the peak memory
    allocated, the parameters and their bytes, and the card's name and
    power limit; nothing in it compiles through torch.compile (Dynamo's
-   frame count must not move). The model is freed before the next phase;
-12. time each kernel, its plain version, its bound (the larger of bytes
+   frame count must not move). Then K7 at 4096 and 8192 steps on the
+   served model's own inputs (a prefill of 8192 tokens at batch 1, its
+   first Mamba layer's scan inputs, x and dt [1, S, 8192], N 16): K7 and
+   its plain version each against a float64 scan, y and the final state
+   within 2^-13 * (|want| + rms(row)) for K7. The model is freed before
+   the next phase;
+12. ``archs``: xlstm-350m through ``launch.serve --arch xlstm-350m
+   --full`` and its Engine (8 ragged prompts of 256-2048 tokens, 32 greedy
+   tokens; no kernel on its path), qwen2-vl-2b (8 x 2048 patch embeddings
+   at a 32 x 64 grid's M-RoPE positions, then 32 greedy text tokens) and
+   seamless-m4t-large-v2 (frames [8, 512, 1024], a teacher-forced prompt
+   of 8 x 2048 tokens, 32 greedy tokens with the cross cache), each at
+   full width and depth from a seed, the counts set to 0 just before each
+   and read just after (K5 28 times for qwen2-vl, 72 for seamless: its
+   encoder not causal, its cross-attention of 2048 queries to 512 keys,
+   head dim 64; qwen2-vl's 6 query heads a KV head); every K5 call held
+   against its plain version; a layer check of each at 2 x 512 (the
+   kernel path against the plain path, and for xlstm each layer's prefill
+   of 512 tokens against its prefill of 511 and one decode step) within
+   2^-5 * (|want| + rms(row)), with a control each that must fail (K5
+   without its causal mask, K5 made causal on the encoder, the decode step
+   from a zero mLSTM state); prefill ms, decode ms a token, peak memory;
+   no Dynamo frame. Each model is freed before the next;
+13. time each kernel, its plain version, its bound (the larger of bytes
    and operations; K5 float32's operations at the least of float32 FMAs,
    3xTF32 and 3xBF16 on the tensor cores, the choice printed; K7's at its
    float32 operations, its exponentials on the SFU alone printed beside
@@ -166,8 +192,8 @@ Phases, each of which must pass:
    off a 16-byte boundary) and,
    where one PyTorch call computes the same function, that call, at the
    shapes the main
-   paths give it (K1 in its timed form, as the quick plan runs it on the
-   card; K3 in both forms, the timed one at the memory-inkernel plan's
+   paths give it (K5 also at each of phase archs' cases; K1 in its timed
+   form, as the quick plan runs it on the card; K3 in both forms, the timed one at the memory-inkernel plan's
    64 MiB rung, its launches also by form and path; K4-K7 also at the
    Jamba shapes, K5 in both dtypes, K6 also at the
    batch-1 cache of 32768 keys, and there at g = 1, 2, 4 and 8 query heads
@@ -182,9 +208,9 @@ Phases, each of which must pass:
    256 MiB of other data went through L2 before each launch, print the
    calibrated SM clock, and time op_chain's loop: each step's time with 1
    and with 32 steps to an iteration;
-13. print the ``{"kernels": [...]}`` line (each kernel with the design each
-   dtype runs; K4-K7's launches summed over the fused run and phase
-   serve), the card's name and power limit, and, last, ``{"ok": true,
+14. print the ``{"kernels": [...]}`` line (each kernel with the design each
+   dtype runs; K4-K7's launches summed over the fused run and phases
+   serve and archs), the card's name and power limit, and, last, ``{"ok": true,
    "device": {...}}``.
 
 It exits non-zero, printing no result, when no CUDA card is visible or the
@@ -926,6 +952,13 @@ def compile_table(pool, rows: list[str]) -> dict[tuple[str, int], dict]:
     for (name, n), r in sorted(results.items(), key=lambda kv: -kv[1]["s"]):
         print(f"compile: {name}@O3 n {n}: {r['s']:.1f} s ({cols(r['phases'])}); "
               f"{sum(r['sass'].values())} SASS instructions in {r['cubins']} cubin(s)")
+    if results:
+        first = min(r["started_at"] for r in results.values()) - pool.started_at
+        last = max(r["done_at"] for r in results.values()) - pool.started_at
+        busy = sum(r["done_at"] - r["started_at"] for r in results.values())
+        print(f"compile pool: these {len(results)} chains ran from {first:.1f} s to {last:.1f} "
+              f"s after the pool started, {busy:.1f} worker-seconds in all ({pool.workers} "
+              "workers)")
     for n in sorted({n for _, n in results}):
         mine = [r for (_, m), r in results.items() if m == n]
         total = {}
@@ -1591,6 +1624,7 @@ def run_serve(dev: torch.device) -> dict[str, int]:
         hold_serve_calls(calls, n_launcher)
         del calls
         check_serve_paths(eng, rng, dev)
+    check_k7_long(eng, rng)
     compiled = torch._dynamo.utils.counters["frames"]["total"] - frames
     print(f"serve: Dynamo frames compiled in this phase: {compiled}")
     if compiled:
@@ -1692,6 +1726,449 @@ def check_serve_paths(eng, rng: np.random.RandomState, dev: torch.device) -> Non
                  "sound K7 from an unsound one")
 
 
+# ------------------------------------------------------------ K7 at length
+# K7 held at these sequence lengths on the served model's own scan inputs
+K7_LONG = (4096, 8192)
+
+
+@torch.no_grad()
+def scan_f64(x, dt, A, B, C, D, marks: tuple[int, ...]):
+    """The selective scan in float64, a step at a time: the yardstick K7
+    and its float32 plain version are both held to. Returns y [Bz,S,Dm]
+    and the state h [Bz,Dm,N] after each of ``marks`` steps."""
+    from repro_torch.kernels.mamba_scan import softplus
+
+    bsz, s, dm = x.shape
+    xd, dtd = x.double(), softplus(dt.double())
+    ad, bd, cd = A.double(), B.double(), C.double()
+    h = torch.zeros(bsz, dm, A.shape[1], dtype=torch.float64, device=x.device)
+    y = torch.empty(bsz, s, dm, dtype=torch.float64, device=x.device)
+    states = {}
+    for t in range(s):
+        h = torch.exp(dtd[:, t, :, None] * ad) * h + (dtd[:, t] * xd[:, t])[..., None] * bd[:, t, None, :]
+        y[:, t] = (h * cd[:, t, None, :]).sum(dim=-1)
+        if t + 1 in marks:
+            states[t + 1] = h.clone()
+    return y + xd * D.double(), states
+
+
+@torch.no_grad()
+def check_k7_long(eng, rng: np.random.RandomState) -> dict:
+    """K7 at K7_LONG steps at Jamba width, on the served model's own scan
+    inputs: one prefill of max(K7_LONG) tokens at batch 1 records each K7
+    call's inputs (x, dt [1, S, 8192], N 16, float32); the first Mamba
+    layer's are scanned, cut to each length, by K7, by its plain version
+    (float32, a step at a time) and in float64. y and the final state of
+    both are held to the float64 scan within 2^-13 * (|want| + rms(row));
+    K7 past that limit fails. (The last Mamba layer's inputs read the same,
+    0.154-0.170 of the limit on K7's state, in PR 26's first card run.)
+    Returns the ratios by length."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.mamba_scan import mamba_scan_plain
+    from repro_torch.models import transformer
+
+    tol = ROW_TOL[torch.float32]
+    s = max(K7_LONG)
+    toks = torch.from_numpy(rng.randint(1, eng.cfg.vocab_size, (1, s))).to(eng.device)
+    calls = []
+    with recording_kernels(calls):
+        transformer.forward(eng.model, eng.rt, tokens=toks)
+    _, args, kw, _ = next(c for c in calls if c[0] == "mamba_scan")
+    del calls
+    y64, h64 = scan_f64(*args, marks=K7_LONG)
+    out = {}
+    for n in K7_LONG:
+        cut = [a[:, :n].contiguous() if a.dim() == 3 else a for a in args]
+        y_k, h_k = ops.mamba_scan(*cut, chunk=kw.get("chunk", 128), return_state=True)
+        y_p, h_p = mamba_scan_plain(*cut, return_state=True)
+        r = {"K7 y": row_scaled_ratio(y_k, y64[:, :n], tol),
+             "K7 h": row_scaled_ratio(h_k, h64[n], tol),
+             "plain y": row_scaled_ratio(y_p, y64[:, :n], tol),
+             "plain h": row_scaled_ratio(h_p, h64[n], tol),
+             "K7 h against plain h": row_scaled_ratio(h_k, h_p, tol)}
+        out[n] = r
+        print(f"serve: K7 at {n} steps, the first Mamba layer of the served model, x "
+              f"{list(cut[0].shape)}, against the float64 scan (units of 2^-13 * "
+              f"(|want| + rms(row))): " + ", ".join(f"{k} {v:.3f}" for k, v in r.items()))
+        if max(r["K7 y"], r["K7 h"]) > 1.0:
+            fail(f"K7 at {n} steps is off the float64 scan: {r}")
+    return out
+
+
+# ----------------------------------------------------------------- archs
+# the three architectures served at full width and depth, weights from a
+# seed on the card: xlstm-350m through the launcher and its Engine;
+# qwen2-vl-2b and seamless-m4t-large-v2 through prefill and decode_step (the
+# JAX package serves them that way only)
+ARCHS_XLSTM_ARGV = ["--arch", "xlstm-350m", "--full", "--device", "cuda:0"]
+ARCHS_BATCH = (8, 2048)          # qwen2-vl's patches, seamless's decoder prompt
+ARCHS_NEW = 32                   # greedy tokens after each prompt
+QWEN_GRID = (32, 64)             # the patches' grid: M-RoPE t 0, h the row, w the column
+SEAMLESS_FRAMES = 512            # the encoder's length, S / 4
+ARCHS_CHECK = (2, 512)           # the layer checks' batch and length
+ARCHS_K5_PER_PREFILL = {"qwen2-vl-2b": 28, "seamless-m4t-large-v2": 72}
+ARCHS_BOUND_S = 45.0
+
+
+def _k5_case(q, k, causal: bool) -> str:
+    return (f"flash_attention bf16 {'causal' if causal else 'non-causal'} q{list(q.shape)} "
+            f"kv{list(k.shape)}")
+
+
+def hold_k5_calls(model: str, calls: list, cases: dict) -> None:
+    """Each recorded K5 call of ``model``'s main path against its plain
+    version (a batch row at a time) under ROW_TOL; prints the worst of each
+    case (queries, keys, causal) and keeps its first call's inputs in
+    ``cases`` for the timing phase."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+
+    worst = {}
+    for name, args, kw, got in calls:
+        if name != "flash_attention":
+            fail(f"archs: {model} called {name}")
+        want = torch.cat([flash_attention_plain(*(a[r:r + 1] for a in args), **kw)
+                          for r in range(args[0].shape[0])])
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            fail(f"archs: {model} K5 call q{list(args[0].shape)}: non-finite output")
+        ratio = row_scaled_ratio(got, want, ROW_TOL[want.dtype])
+        label = _k5_case(args[0], args[1], kw.get("causal", True))
+        n, w = worst.get(label, (0, 0.0))
+        worst[label] = (n + 1, max(w, ratio))
+        if label not in cases:
+            cases[label] = {"model": model, "args": args, "kw": kw, "calls": 0,
+                            "err_over_limit": 0.0}
+        cases[label]["calls"] += 1
+        cases[label]["err_over_limit"] = max(cases[label]["err_over_limit"], ratio)
+        if ratio > 1.0:
+            fail(f"archs: {model} K5 call {label} disagrees with the plain version "
+                 f"({ratio:.3f} x the limit)")
+    for label, (n, w) in worst.items():
+        print(f"archs: {model} {n} K5 calls {label}: worst err/limit {w:.3f} "
+              f"(limit 2^-7 * (|want| + rms(row)))")
+
+
+def print_layer_rows(model: str, rows: list[dict]) -> dict:
+    """Print a layer check's rows (``models.pathcheck``'s) and its worst;
+    fails above 1. Returns the worst row."""
+    for r in rows:
+        cells = [f"output {r['out']:.3f}"]
+        if r["cache"] is not None:
+            cells.append(f"cache {r['cache']:.3f}")
+        if r["state"] is not None:
+            cells.append(f"state {r['state']:.3f}")
+        print(f"archs: {model} layer check {r['step']} {r['layer']}: {', '.join(cells)} of "
+              "the limit 2^-5 * (|want| + rms(row))")
+    worst = max(rows, key=lambda r: r["worst"])
+    print(f"archs: {model} layer check at {ARCHS_CHECK[0]} x {ARCHS_CHECK[1]}: {len(rows)} "
+          f"rows, worst {worst['worst']:.3f} of its limit ({worst['step']} {worst['layer']})")
+    if worst["worst"] > 1.0:
+        fail(f"archs: {model}'s kernel path is off its plain path at {worst['step']} "
+             f"{worst['layer']} by {worst['worst']:.3f} of the limit")
+    return worst
+
+
+def control(model: str, label: str, rows: list[dict]) -> float:
+    """A control's worst output ratio; it must fail the check (above 1)."""
+    bad = max(r["out"] for r in rows)
+    print(f"archs: {model} control, {label}: worst {bad:.3f} of its limit -> "
+          f"{'REJECTED' if bad > 1 else 'passed'}")
+    if bad <= 1.0:
+        fail(f"archs: the control '{label}' passes {model}'s check")
+    return bad
+
+
+def greedy(step, logits: torch.Tensor, n: int) -> tuple[np.ndarray, float]:
+    """``n`` greedy tokens: the prefill's, then n - 1 decode steps
+    (``step(tokens, i)`` returns the next logits); returns them and the ms
+    a decode step took (host clock, synchronised)."""
+    toks = [torch.argmax(logits, dim=-1)[:, None]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n - 1):
+        logits = step(toks[-1], i)
+        toks.append(torch.argmax(logits, dim=-1)[:, None])
+    out = torch.cat(toks, dim=1).cpu().numpy()
+    return out, (time.perf_counter() - t0) * 1e3 / max(n - 1, 1)
+
+
+def archs_xlstm(dev: torch.device, rng: np.random.RandomState) -> dict:
+    """xlstm-350m: the launcher's 8 requests, then 8 ragged prompts of
+    256-2048 tokens, 32 greedy tokens each, through its Engine (no kernel:
+    the JAX package has none for the xLSTM mixers); then, at ARCHS_CHECK,
+    each layer's chunked prefill of S tokens against its prefill of S - 1
+    tokens and one decode step, given the same input: the last position's
+    output and the state it hands on (the mLSTM's without its stabilizer,
+    c e^m and n e^m) within LAYER_TOL. Control: the decode step from a zero
+    mLSTM state."""
+    from repro_torch.launch import serve
+    from repro_torch.models import pathcheck, transformer
+
+    zero_counts()
+    eng = serve.main(ARCHS_XLSTM_ARGV)
+    model, cfg = eng.model, eng.cfg
+    lo, hi = SERVE_LONG["min_len"], SERVE_LONG["max_len"]
+    prompts = [rng.randint(1, cfg.vocab_size, size=n).tolist() for n in
+               [lo, hi] + list(rng.randint(lo, hi + 1, SERVE_LONG["requests"] - 2))]
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = eng.generate(prompts, max_new=ARCHS_NEW)
+    launches = {k: v for k, v in read_counts().items() if v}
+    if launches:
+        fail(f"archs: xlstm-350m launched {launches}; its path runs no kernel")
+    if not ((out.tokens >= 0) & (out.tokens < cfg.vocab_size)).all():
+        fail("archs: xlstm-350m: tokens outside the vocabulary")
+    fig = {"params": transformer.n_params(model),
+           "bytes": sum(p.numel() * p.element_size() for p in model.parameters()),
+           "prefill_ms": out.prefill_s * 1e3,
+           "decode_ms": out.decode_s * 1e3 / (out.steps - 1),
+           "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+    print(f"archs: xlstm-350m long prompts: {len(prompts)} requests of "
+          f"{[len(p) for p in prompts]} tokens, {ARCHS_NEW} greedy tokens each: prefill "
+          f"{fig['prefill_ms']:.2f} ms, decode {fig['decode_ms']:.3f} ms a token, peak memory "
+          f"{fig['peak_bytes']} B; {cfg.n_layers} layers, {fig['params']} parameters, "
+          f"{fig['bytes']} B ({cfg.param_dtype}); req0 {out.tokens[0].tolist()[:8]}...")
+
+    b, s = ARCHS_CHECK
+    rt = eng.rt
+    toks = torch.from_numpy(rng.randint(1, cfg.vocab_size, (b, s))).to(dev)
+    pos = torch.arange(s, device=dev)[None].expand(b, s)
+    tol = pathcheck.LAYER_TOL
+    rows, zero_rows = [], []
+    with torch.no_grad():
+        x = transformer._embed_in(model, toks)
+        for i, period in enumerate(model.periods):
+            for name, block in period.items():
+                y_full, c_full = block.mixer(x, rt)
+                _, c_prev = block.mixer(x[:, :-1], rt)
+                y_dec, c_dec = block.mixer.decode(x[:, -1:], c_prev)
+                if "m" in c_dec and "h" not in c_dec:      # mLSTM: take out the stabilizer
+                    scale = torch.exp(c_dec["m"])
+                    got = {"c": c_dec["c"] * scale[..., None, None],
+                           "n": c_dec["n"] * scale[..., None], "conv": c_dec["conv"]}
+                    zero = {**c_prev, "c": torch.zeros_like(c_prev["c"]),
+                            "n": torch.zeros_like(c_prev["n"])}
+                    y_zero, _ = block.mixer.decode(x[:, -1:], zero)
+                    zero_rows.append({"out": pathcheck.row_scaled_ratio(
+                        y_zero[:, 0], y_full[:, -1], tol)})
+                else:
+                    got = {k: c_dec[k] for k in ("c", "n", "h")}
+                state = max(pathcheck.row_scaled_ratio(got[k], c_full[k], tol) for k in got)
+                r = pathcheck.row_scaled_ratio(y_dec[:, 0], y_full[:, -1], tol)
+                rows.append({"step": "decode", "layer": f"{i}.{name}", "out": r,
+                             "cache": None, "state": state, "worst": max(r, state)})
+                x = y_full
+    worst = print_layer_rows("xlstm-350m", rows)
+    control("xlstm-350m", "the decode step from a zero mLSTM state", zero_rows)
+    fig["layer_check_worst"] = worst["worst"]
+    del eng, model
+    return fig
+
+
+def archs_qwen(dev: torch.device, rng: np.random.RandomState, cases: dict) -> tuple[dict, int]:
+    """qwen2-vl-2b: a prefill of ARCHS_BATCH patch embeddings (bfloat16,
+    from a seed, scaled as its token embeddings) at the M-RoPE positions of
+    a QWEN_GRID patch grid, K5 on every attention layer (12 query heads to 2
+    KV heads, D 128), then ARCHS_NEW greedy text tokens at positions whose
+    three streams all continue from the grid's largest position plus one;
+    every K5 call held against its plain version; the layer check at
+    ARCHS_CHECK (a 16 x 32 grid), K5 without its causal mask the control."""
+    from repro_torch.configs.registry import get
+    from repro_torch.kernels import ops
+    from repro_torch.models import pathcheck, transformer
+    from repro_torch.models.config import Runtime
+
+    cfg = get("qwen2-vl-2b").config
+    rt = Runtime(remat=False, attn_impl="pallas", use_pallas=True)
+    plain = dataclasses.replace(rt, attn_impl="plain", use_pallas=False)
+    model = transformer.init_lm(cfg, seed=0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def grid(b, rows, cols):
+        h, w = torch.meshgrid(torch.arange(rows, device=dev), torch.arange(cols, device=dev),
+                              indexing="ij")
+        pos = torch.stack([torch.zeros_like(h).flatten(), h.flatten(), w.flatten()])
+        return pos[:, None].expand(3, b, rows * cols)
+
+    def patches(b, s):
+        return (torch.randn(b, s, cfg.d_model, generator=g, device=dev)
+                * cfg.d_model ** -0.5).to(torch.bfloat16)
+
+    b, s = ARCHS_BATCH
+    emb, pos = patches(b, s), grid(b, *QWEN_GRID)
+    nxt = int(pos.max()) + 1
+    calls = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    with recording_kernels(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = transformer.prefill(model, rt, embeds=emb, positions=pos)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        cache = transformer.pad_cache(cache, cfg, s + ARCHS_NEW)
+        state = {"cache": cache}
+
+        def step(tok, i):
+            lg, state["cache"] = transformer.decode_step(
+                model, state["cache"], tok, s + i, rt,
+                positions=torch.full((3, b, 1), nxt + i, device=dev))
+            return lg
+        toks, decode_ms = greedy(step, logits, ARCHS_NEW)
+    launches = {k: v for k, v in read_counts().items() if v}
+    fig = {"params": transformer.n_params(model),
+           "bytes": sum(p.numel() * p.element_size() for p in model.parameters()),
+           "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+           "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+    want = {"flash_attention": ARCHS_K5_PER_PREFILL["qwen2-vl-2b"]}
+    if launches != want:
+        fail(f"archs: qwen2-vl-2b launched {launches}, want {want}")
+    if not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        fail("archs: qwen2-vl-2b: tokens outside the vocabulary")
+    print(f"archs: qwen2-vl-2b: {b} x {s} patch embeddings at a {QWEN_GRID[0]} x "
+          f"{QWEN_GRID[1]} grid's M-RoPE positions, {ARCHS_NEW} greedy text tokens from "
+          f"position {nxt}: prefill {prefill_ms:.2f} ms, decode {decode_ms:.3f} ms a token, "
+          f"peak memory {fig['peak_bytes']} B; {cfg.n_layers} layers, {fig['params']} "
+          f"parameters, {fig['bytes']} B ({cfg.param_dtype}); launches {launches}; req0 "
+          f"{toks[0].tolist()[:8]}...")
+    with torch.no_grad():
+        hold_k5_calls("qwen2-vl-2b", calls, cases)
+    del calls, state, cache
+
+    cb, cs = ARCHS_CHECK
+    emb, pos = patches(cb, cs), grid(cb, 16, cs // 16)
+    tok = torch.from_numpy(rng.randint(1, cfg.vocab_size, (cb, 1))).to(dev)
+    nxt = torch.full((3, cb, 1), int(pos.max()) + 1, device=dev)
+    rows, ck, cp = pathcheck.prefill_layers(model, rt, plain, embeds=emb, positions=pos)
+    rows += pathcheck.decode_layers(model, ck, cp, tok, cs, rt, plain, positions=nxt)
+    fig["layer_check_worst"] = print_layer_rows("qwen2-vl-2b", rows)["worst"]
+    real = ops.flash_attention
+    ops.flash_attention = lambda q, k, v, causal=True, **kw: real(q, k, v, causal=False, **kw)
+    try:
+        bad = pathcheck.prefill_layers(model, rt, plain, embeds=emb, positions=pos)[0]
+    finally:
+        ops.flash_attention = real
+    control("qwen2-vl-2b", "K5 without its causal mask", bad)
+    del model, ck, cp
+    return fig, launches["flash_attention"]
+
+
+def archs_seamless(dev: torch.device, rng: np.random.RandomState,
+                   cases: dict) -> tuple[dict, int]:
+    """seamless-m4t-large-v2: frames [8, SEAMLESS_FRAMES, 1024] (bfloat16,
+    from a seed) through the encoder (K5 not causal), a teacher-forced
+    decoder prompt of ARCHS_BATCH tokens (K5 causal, and K5 across to the
+    memory, queries and keys of different lengths), then ARCHS_NEW greedy
+    tokens through decode_step with the cross cache; every K5 call held
+    against its plain version; the layer check at ARCHS_CHECK (frames S /
+    4), K5 made causal on the encoder the control."""
+    from repro_torch.configs.registry import get
+    from repro_torch.kernels import ops
+    from repro_torch.models import encdec, pathcheck, transformer
+    from repro_torch.models.config import Runtime
+
+    cfg = get("seamless-m4t-large-v2").config
+    rt = Runtime(remat=False, attn_impl="pallas", use_pallas=True)
+    plain = dataclasses.replace(rt, attn_impl="plain", use_pallas=False)
+    model = encdec.init_encdec(cfg, seed=0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+
+    def frames(b, n):
+        return torch.randn(b, n, cfg.d_model, generator=g, device=dev).to(torch.bfloat16)
+
+    b, s = ARCHS_BATCH
+    fr = frames(b, SEAMLESS_FRAMES)
+    prompt = torch.from_numpy(rng.randint(1, cfg.vocab_size, (b, s))).to(dev)
+    calls = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    with recording_kernels(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = encdec.prefill(model, rt, fr, prompt)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        state = {"cache": encdec.pad_cache(cache, s + ARCHS_NEW)}
+
+        def step(tok, i):
+            lg, state["cache"] = encdec.decode_step(model, state["cache"], tok, s + i, rt)
+            return lg
+        toks, decode_ms = greedy(step, logits, ARCHS_NEW)
+    launches = {k: v for k, v in read_counts().items() if v}
+    fig = {"params": transformer.n_params(model),
+           "bytes": sum(p.numel() * p.element_size() for p in model.parameters()),
+           "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+           "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+    want = {"flash_attention": ARCHS_K5_PER_PREFILL["seamless-m4t-large-v2"]}
+    if launches != want:
+        fail(f"archs: seamless-m4t-large-v2 launched {launches}, want {want}")
+    if not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        fail("archs: seamless-m4t-large-v2: tokens outside the vocabulary")
+    print(f"archs: seamless-m4t-large-v2: frames [{b}, {SEAMLESS_FRAMES}, {cfg.d_model}], a "
+          f"decoder prompt of {b} x {s} tokens, {ARCHS_NEW} greedy tokens with the cross "
+          f"cache: prefill {prefill_ms:.2f} ms, decode {decode_ms:.3f} ms a token, peak "
+          f"memory {fig['peak_bytes']} B; {cfg.n_encoder_layers} + {cfg.n_layers} layers, "
+          f"{fig['params']} parameters, {fig['bytes']} B ({cfg.param_dtype}); launches "
+          f"{launches}; req0 {toks[0].tolist()[:8]}...")
+    with torch.no_grad():
+        hold_k5_calls("seamless-m4t-large-v2", calls, cases)
+    del calls, state, cache
+
+    cb, cs = ARCHS_CHECK
+    fr = frames(cb, cs // 4)
+    toks = torch.from_numpy(rng.randint(1, cfg.vocab_size, (cb, cs + 1))).to(dev)
+    rows, ck, cp = pathcheck.encdec_prefill_layers(model, rt, plain, fr, toks[:, :cs])
+    rows += pathcheck.encdec_decode_layers(model, ck, cp, toks[:, cs:], cs, rt, plain)
+    fig["layer_check_worst"] = print_layer_rows("seamless-m4t-large-v2", rows)["worst"]
+    real = ops.flash_attention
+
+    def causal_encoder(q, k, v, causal=True, **kw):
+        return real(q, k, v, causal=causal or q.shape[1] == k.shape[1], **kw)
+
+    ops.flash_attention = causal_encoder
+    try:
+        bad = pathcheck.encdec_prefill_layers(model, rt, plain, fr, toks[:, :cs])[0]
+    finally:
+        ops.flash_attention = real
+    control("seamless-m4t-large-v2", "K5 made causal on the encoder",
+            [r for r in bad if r["step"] == "encode"])
+    del model, ck, cp
+    return fig, launches["flash_attention"]
+
+
+def run_archs(dev: torch.device) -> tuple[dict, dict]:
+    """Phase archs: xlstm-350m, qwen2-vl-2b and seamless-m4t-large-v2 at
+    full width and depth (:func:`archs_xlstm`, :func:`archs_qwen`,
+    :func:`archs_seamless`), each model freed before the next; the launch
+    counts set to 0 just before each model's main path and read just
+    after (K5 only, and only in qwen2-vl and seamless); no Dynamo frame
+    compiled. Returns K5's launches by model and the K5 cases (the first
+    call of each shape, kept for the timing phase)."""
+    import gc
+
+    frames = torch._dynamo.utils.counters["frames"]["total"]
+    rng = np.random.RandomState(3)
+    cases, launches, figs = {}, {}, {}
+    t0 = time.perf_counter()
+    figs["xlstm-350m"] = archs_xlstm(dev, rng)
+    gc.collect()
+    torch.cuda.empty_cache()
+    figs["qwen2-vl-2b"], launches["qwen2-vl-2b"] = archs_qwen(dev, rng, cases)
+    gc.collect()
+    torch.cuda.empty_cache()
+    figs["seamless-m4t-large-v2"], launches["seamless-m4t-large-v2"] = archs_seamless(
+        dev, rng, cases)
+    gc.collect()
+    torch.cuda.empty_cache()
+    compiled = torch._dynamo.utils.counters["frames"]["total"] - frames
+    wall = time.perf_counter() - t0
+    print(f"archs: Dynamo frames compiled in this phase: {compiled}; K5 launches by model "
+          f"{launches}; wall {wall:.2f} s against the bound {ARCHS_BOUND_S:.0f} s; card {card()}")
+    print(f"archs: figures {json.dumps(figs)}")
+    if compiled:
+        fail(f"archs: {compiled} frames went through torch.compile; the phase runs eagerly")
+    return launches, cases
+
+
 def fused_work(name: str, args: tuple, kw: dict) -> tuple[int, int, float, str]:
     """(bytes, operations, the operations' least time in s, how it was
     taken) of one call: each input read once and each output written once;
@@ -1775,12 +2252,14 @@ def library_call(name: str, args: tuple, kw: dict):
 
 
 def time_fused(dev: torch.device, err: dict, jamba: dict, cases: dict,
-               launches: dict, serve_launches: dict) -> list[dict]:
+               launches: dict, serve_launches: dict, archs_launches: dict,
+               archs_cases: dict) -> list[dict]:
     """Phase 5, K4-K7: the kernel (CUDA events behind a lead), its plain
     version (wall time to completion), its bound and the library call, at
     the fused plan's larger unit workload (n = 6) and at the Jamba case
-    (and at the second case of JAMBA_TIMED_MORE); its launches summed over
-    the fused run and phase serve (both also by phase)."""
+    (and at the second case of JAMBA_TIMED_MORE); K5 also at each case of
+    phase archs, on the inputs of its first call there; its launches summed
+    over the fused run and phases serve and archs (also by phase)."""
     from repro_torch.core.timing import Timer
     from repro_torch.inkernel import (FUSED_KERNELS, FUSED_LENS, build_fused, fused_kwargs,
                                       unit_bytes)
@@ -1832,6 +2311,14 @@ def time_fused(dev: torch.device, err: dict, jamba: dict, cases: dict,
             extra[key] = measure(name, margs, mkw, f"Jamba {mlabel}")
             extra[key].update(jamba[mlabel], shape=mlabel)
         by_phase = {"fused": launches[name], "serve": serve_launches.get(name, 0)}
+        if name == "flash_attention":
+            by_phase["archs"] = sum(archs_launches.values())
+            extra["archs"] = {}
+            for label, case in archs_cases.items():
+                extra["archs"][label] = {
+                    **measure(name, case["args"], case["kw"], f"archs {case['model']} {label}"),
+                    "model": case["model"], "launches": case["calls"],
+                    "err_over_limit": case["err_over_limit"]}
         print(f"{name}: {sum(by_phase.values())} launches on the main path {by_phase}")
         out.append({"name": name, "route": "cuda",
                     "source": f"src/repro_torch/csrc/{name}.cu",
@@ -1935,17 +2422,14 @@ def decode_passes(cases: dict, reps: int = 20) -> dict[str, dict[str, float]]:
     return out
 
 
-def time_kernels(dev: torch.device, err: dict, *plan_launches: dict, big) -> list[dict]:
+def time_kernels(dev: torch.device, err: dict, *, big) -> list[dict]:
     """Phase 9: each kernel at the largest call the quick plan makes of it:
     the kernel's time on the card (CUDA events behind a lead, as the probes
     time), the plain version's wall time to completion (it may wait for the
-    card inside, as the chase's host loop does), and the bound; its
-    launches summed over the plans' runs (quick's, table2's and inkernel's).
-    K2's entry also holds its timed form's (``timed_form``), at the inkernel
-    plan's call: the add row's (8, 128) tile at n 64; its ``launches`` there
-    are the timed form's alone, K2's own those of both forms."""
-    launches = {k: sum(p.get(k, 0) for p in plan_launches)
-                for k in sorted(set().union(*plan_launches))}
+    card inside, as the chase's host loop does), and the bound. K2's entry
+    also holds its timed form's (``timed_form``), at the inkernel plan's
+    call: the add row's (8, 128) tile at n 64. Their launches on the plans'
+    runs are filled in afterwards (:func:`count_plan_launches`)."""
     from repro_torch.core.chains import KERNEL_CHAIN_UNROLL
     from repro_torch.core.membench import build_ring
     from repro_torch.core.timing import Timer
@@ -2006,11 +2490,9 @@ def time_kernels(dev: torch.device, err: dict, *plan_launches: dict, big) -> lis
         ops_ms = nops / FP32_OPS_PER_S * 1e3
         bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
         print(f"{name}: {ms:.6f} ms/launch on the card, plain {plain_ms:.6f} ms wall, bound "
-              f"{bound_ms:.3g} ms ({bound_by}: {nbytes} B, {nops} ops), "
-              f"{launches[name]} launches on the main path [{shape}]")
+              f"{bound_ms:.3g} ms ({bound_by}: {nbytes} B, {nops} ops) [{shape}]")
         out.append({"name": name, "route": "cuda", "source": source,
-                    "replaces": replaces, "design": designs(name),
-                    "launches": launches[name],
+                    "replaces": replaces, "design": designs(name), "launches": None,
                     "max_abs_err": err.get(name), "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
     (timed,) = [k for k in out if k["name"] == "op_chain_timed"]
@@ -2020,12 +2502,30 @@ def time_kernels(dev: torch.device, err: dict, *plan_launches: dict, big) -> lis
     (timed,) = [k for k in out if k["name"] == "chase_timed"]
     out.remove(timed)  # and K3's inside K3's
     del timed["replaces"], timed["max_abs_err"]
-    k3 = next(k for k in out if k["name"] == "chase")
-    k3["timed_form"] = timed
+    next(k for k in out if k["name"] == "chase")["timed_form"] = timed
+    return out
+
+
+def count_plan_launches(kernels: list[dict], *plan_launches: dict) -> None:
+    """Fill K1-K3's launches (:func:`time_kernels`' entries, and their timed
+    forms') with their sums over the plans' runs (quick's, table2's,
+    inkernel's, the memory plans' and o1's); K3's also by form and path."""
+    launches = {k: sum(p.get(k, 0) for p in plan_launches)
+                for k in sorted(set().union(*plan_launches))}
+    for k in kernels:
+        if k["launches"] is not None:  # K4-K7: counted in the phases that ran them
+            continue
+        k["launches"] = launches[k["name"]]
+        line = f"{k['name']}: {k['launches']} launches on the main path"
+        if "timed_form" in k:
+            timed = k["timed_form"]
+            timed["launches"] = launches[timed["name"]]
+            line += f"; {timed['name']}: {timed['launches']}"
+        print(line)
+    k3 = next(k for k in kernels if k["name"] == "chase")
     k3["launches_by_path"] = {k.removeprefix("chase/"): n for k, n in launches.items()
                               if k.startswith("chase/")}
     print(f"chase launches by form and path on the main path: {k3['launches_by_path']}")
-    return out
 
 
 def clock_study(dev: torch.device, trials: int = 20, reps: int = 5, *, rungs: dict) -> None:
@@ -2462,12 +2962,12 @@ def main() -> int:
     from repro_torch import inkernel
     from repro_torch.api.plan import QUICK_OPS, named_plan
     from repro_torch.api.session import CompilePool, compile_workers_for, warm_tasks
-    from repro_torch.audit import artifacts
-    from repro_torch.core import measure
+    from repro_torch.audit import artifacts, chain_check, lint
+    from repro_torch.core import chains, measure
     from repro_torch.kernels import _build
     from repro_torch.kernels.common import resolve_device
 
-    t_all = time.perf_counter()
+    t_all, t_wall = time.perf_counter(), time.time()
     dev = resolve_device("cuda:0")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(dev)}")
@@ -2481,10 +2981,14 @@ def main() -> int:
                      runner=artifacts.warm_and_read) as pool, \
             tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         pool.submit(tasks)
-        # the o1 phase's chains compile here while quick and table2 wait (the
-        # audit's lowering lint compiles its short CPU chains after the pool)
+        # the o1 phase's chains compile here while quick and table2 wait
         pool.local += [(measure.prepare_o1_chain, (name, n, str(dev)))
                        for name in QUICK_OPS for n in reversed(measure._CHAIN_LENS["O1"])]
+        # and the short CPU chains of the audit's lowering lint, whose graphs it
+        # reads (chain_check.o1_graph_ops keeps them)
+        pool.local += [(chain_check.o1_graph_ops,
+                        (spec, min(lint.LINT_LEN, spec.max_chain or lint.LINT_LEN)))
+                       for spec in chains.default_registry()]
         t0 = time.perf_counter()
         build = _build.build()
         print(f"library: {build} ({', '.join(f'lib{k}.so' for k in _build.KERNELS)})")
@@ -2502,6 +3006,22 @@ def main() -> int:
         cases = jamba_inputs(dev)
         fused_err, jamba = check_fused_kernels(dev, cases)
         phase("kernels", t0)
+
+        # the phases that need no compiled chain run while the workers
+        # compile: the card is idle there, and after the pool only the
+        # plans' own work is left. Their host-side times (prefill and decode
+        # ms) are taken beside the workers; the kernels' times are not
+        t0 = time.perf_counter()
+        fused_launches = run_fused(dev)
+        phase("fused", t0)
+
+        t0 = time.perf_counter()
+        serve_launches = run_serve(dev)
+        phase("serve", t0)
+
+        t0 = time.perf_counter()
+        archs_launches, archs_cases = run_archs(dev)
+        phase("archs", t0)
 
         db_path = str(Path(tmp) / "db.json")  # table2 runs on quick's DB
         t0 = time.perf_counter()
@@ -2529,6 +3049,8 @@ def main() -> int:
         phase("o1", t0)
 
         t0 = time.perf_counter()
+        while pool.local:  # what the sessions' waits left of this process's tasks
+            pool.run_local()
         run_audit(dev, db_path, str(Path(tmp) / "attribution.md"))
         phase("audit", t0)
         chains_o3 = {(fn.__module__, fn.__qualname__, *args) for fn, args in tasks}
@@ -2539,26 +3061,24 @@ def main() -> int:
               f"(none for O1 or the audit); the O1 chains took {pool.local_s:.2f} s in this "
               "process while the workers compiled")
 
-        t0 = time.perf_counter()
-        fused_launches = run_fused(dev)
-        phase("fused", t0)
-
-        t0 = time.perf_counter()
-        serve_launches = run_serve(dev)
-        phase("serve", t0)
-
-        t0 = time.perf_counter()
-        rungs = {"inkernel.mem.65536 (smem)": inkernel.prepare_chase(64 << 10, device=dev),
-                 "inkernel.mem.67108864": inkernel.prepare_chase(64 << 20, device=dev)}
-        rungs["inkernel.mem.67108864"].lap()
-        kernels = time_kernels(dev, err, launches, table2_launches, inkernel_launches,
-                               memory_launches, memory_inkernel_launches, o1_launches,
-                               big=rungs["inkernel.mem.67108864"])
-        kernels += time_fused(dev, fused_err, jamba, cases, fused_launches, serve_launches)
-        clock_study(dev, rungs=rungs)
-        loop_study(dev)
-        phase("timing", t0)
+    # timed after the pool has stopped, so that no compile worker shares the
+    # host with the plain versions' launches; the plans' launches of K1-K3
+    # are counted in after
+    t0 = time.perf_counter()
+    rungs = {"inkernel.mem.65536 (smem)": inkernel.prepare_chase(64 << 10, device=dev),
+             "inkernel.mem.67108864": inkernel.prepare_chase(64 << 20, device=dev)}
+    rungs["inkernel.mem.67108864"].lap()
+    kernels = time_kernels(dev, err, big=rungs["inkernel.mem.67108864"])
+    kernels += time_fused(dev, fused_err, jamba, cases, fused_launches, serve_launches,
+                          archs_launches, archs_cases)
+    clock_study(dev, rungs=rungs)
+    loop_study(dev)
+    del rungs, archs_cases
+    phase("timing", t0)
+    count_plan_launches(kernels, launches, table2_launches, inkernel_launches,
+                        memory_launches, memory_inkernel_launches, o1_launches)
     phase("total", t_all)
+    print(f"compile pool: started {pool.started_at - t_wall:.1f} s into the run")
 
     print(json.dumps({"kernels": kernels}))
     print(card())

@@ -135,6 +135,7 @@ class CompilePool:
         self.futures: dict[tuple, concurrent.futures.Future] = {}
         self.local: list[tuple] = []
         self.local_s = 0.0
+        self.started_at = time.time()
 
     def submit(self, tasks: list[tuple]) -> list[concurrent.futures.Future]:
         out = []
@@ -173,13 +174,15 @@ class CompilePool:
 
 def compile_workers_for(device: torch.device, n_tasks: int) -> int:
     """Worker processes for ``n_tasks`` warm tasks on ``device``: on CUDA one
-    per core, and no more than there are tasks (the session's own process
-    mostly waits for them: it only loads each chain they compiled); on the
-    CPU none (the chains compile in the session's process, and no worker
-    imports torch anew beside it)."""
+    per CPU the process may use (its affinity mask: ``os.cpu_count()``
+    counts the machine's), and no more than there are tasks (the session's
+    own process mostly waits for them: it only loads each chain they
+    compiled); on the CPU none (the chains
+    compile in the session's process, and no worker imports torch anew
+    beside it)."""
     if device.type != "cuda":
         return 0
-    return min(os.cpu_count() or 1, n_tasks)
+    return min(len(os.sched_getaffinity(0)), n_tasks)
 
 
 class Session:
@@ -327,12 +330,14 @@ class Session:
         records) the same chain in this process.
         """
         t0 = time.perf_counter()
+        stage0 = dict(stage_ns)
         tasks = warm_tasks([p for _, p in pending], self.device)
         workers = (0 if not tasks or CompilePool.current is not None
                    else compile_workers_for(self.device, len(tasks)))
         own = (CompilePool(workers, runner=artifacts.warm_and_read if self.audit else None)
                if workers else None)
         pool = CompilePool.current or own
+        local0 = pool.local_s if pool is not None else 0.0
         waiting: dict[int, list] = {}
         if pool is not None and tasks:
             pool.submit(tasks)  # in this order; a probe's own submit below finds them
@@ -362,9 +367,13 @@ class Session:
             if own is not None:
                 own.close()
         if tasks and pool is not None:
+            local_s = pool.local_s - local0
             logger.info("compile-ahead: %d chains in %d worker processes; all probes "
-                        "prepared in %.1f s", len(tasks), pool.workers,
-                        time.perf_counter() - t0)
+                        "prepared in %.1f s: this process %.1f s preparing probes (their "
+                        "chains loaded from the cache), %.1f s on its own tasks, %.1f s "
+                        "waiting", len(tasks), pool.workers, time.perf_counter() - t0,
+                        (stage_ns["compile"] - stage0["compile"]) / 1e9, local_s,
+                        (stage_ns["warm"] - stage0["warm"]) / 1e9 - local_s)
         return prepared
 
     @staticmethod

@@ -30,6 +30,7 @@ import dataclasses
 import functools
 import re
 import subprocess
+import time
 from collections import Counter
 from pathlib import Path
 from typing import Any
@@ -471,10 +472,12 @@ def warm_and_read(fn, *args) -> dict:
     """The compile pool's runner: a warm task (``measure.warm_chain``), then
     what the audit reads of the Triton kernels that task loaded
     (:func:`read_modules`), so that it is read once, in the worker."""
+    started = time.time()
     before = {id(m) for m in loaded_inductor_modules()}
     result = fn(*args)
     return {**result, **read_modules([m for m in loaded_inductor_modules()
-                                      if id(m) not in before])}
+                                      if id(m) not in before]),
+            "started_at": started, "done_at": time.time()}
 
 
 # the device code of each chain a compile worker built, by its chain name

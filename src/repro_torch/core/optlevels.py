@@ -73,6 +73,84 @@ def stable_cache_keys() -> None:
     copyreg.pickle(torch.memory_format, _reduce_memory_format)
 
 
+def incremental_opcount() -> None:
+    """Make Inductor's lowering of a long pointwise chain linear in its
+    length, with the same decisions and the same code.
+
+    After each node it lowers, Inductor counts the ops of the node's
+    expression (``Loops.inner_fn_opcount``: the node's ``inner_fn`` traced
+    under an ``OpCounterCSE``) to decide whether to store it as a buffer;
+    the expression inlines every input not yet stored, up to 100 ops, so a
+    512-step chain traces ~50 ops a node again and again: 58 % of the
+    lowering of ``mad.cc``'s chain on an H100's host (``tools/
+    compile_study.py``). Here each node keeps its count's final state and
+    output; when a later count, from a fresh counter, reaches that node's
+    expression first with the same index, it takes that state and output
+    instead of tracing the node again. The trace it skips would have left
+    the counter in exactly that state, so every count, and with it every
+    decision and the generated code, is what it was. Anywhere else (code
+    generation, a counter that has seen other ops first, another index)
+    the node's expression runs as before. Installing it twice is a no-op;
+    each installed method keeps Inductor's own as ``inductor_own``."""
+    from torch._inductor import ir
+    from torch._inductor.ops_handler import OpCounterCSE
+    from torch._inductor.virtualized import V
+
+    if hasattr(ir.Loops.inner_fn_opcount, "inductor_own"):
+        return
+    count, make_loader = ir.Loops.inner_fn_opcount, ir.Pointwise.make_loader
+
+    def fresh(handler) -> bool:
+        return (isinstance(handler, OpCounterCSE) and handler.op_count == 0
+                and not handler.var_names)
+
+    def snapshot(handler) -> dict:
+        return {k: (v.copy() if hasattr(v, "copy") else v)
+                for k, v in vars(handler).items() if k != "parent_handler"}
+
+    def inner_fn_opcount(self):
+        if not isinstance(self, ir.Pointwise) or "_opcount_state" in vars(self):
+            return count(self)
+        inner = self.inner_fn
+
+        def recording(*args):
+            handler = V.ops
+            start = fresh(handler)
+            out = inner(*args)
+            if start:
+                object.__setattr__(self, "_opcount_state", (
+                    args, type(handler.parent_handler), snapshot(handler), out))
+            return out
+
+        object.__setattr__(self, "inner_fn", recording)
+        try:
+            return count(self)
+        finally:
+            object.__setattr__(self, "inner_fn", inner)
+
+    def pointwise_make_loader(self):
+        loader = make_loader(self)
+        if loader is not self.inner_fn:
+            return loader
+        node = self
+
+        def load(*args):
+            saved = vars(node).get("_opcount_state")
+            handler = V.ops
+            if (saved is not None and fresh(handler) and saved[0] == args
+                    and type(handler.parent_handler) is saved[1]):
+                vars(handler).update(snapshot(types.SimpleNamespace(**saved[2])))
+                return saved[3]
+            return loader(*args)
+
+        return load
+
+    inner_fn_opcount.inductor_own = count
+    pointwise_make_loader.inductor_own = make_loader
+    ir.Loops.inner_fn_opcount = inner_fn_opcount
+    ir.Pointwise.make_loader = pointwise_make_loader
+
+
 def o1_option_string() -> str:
     """O1's settings, as the rows measured at O1 state them (``o1=``)."""
     return ",".join(f"{k}:{v}" for k, v in O1_OPTIONS.items())
@@ -107,6 +185,7 @@ def compile_at_level(fn: Callable[..., Any], level: str, name: str = "chain",
         return fn  # eager dispatch
     if level == "O3":
         stable_cache_keys()
+        incremental_opcount()
         # compile_threads=1: Triton kernels compile in the calling process.
         # By default Inductor starts a pool of compile subprocesses, one per
         # core, in every process that compiles: on the host the O0 rows time,

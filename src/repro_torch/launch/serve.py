@@ -13,6 +13,11 @@ dtype. It runs on ``cuda:0`` unless ``--device`` names another device::
     python -m repro_torch.launch.serve --arch jamba-v0.1-52b --device cpu
     python -m repro_torch.launch.serve --arch jamba-v0.1-52b --full --periods 1 --kernels
 
+The architectures that take a frontend's embeddings (seamless-m4t's frames,
+qwen2-vl's patches and their M-RoPE positions) are refused: the JAX package
+drives them through their ``prefill`` and ``decode_step`` functions only,
+and so does the port (``chip_smoke.py``'s phase ``archs``).
+
 It prints a line of figures (parameters, prefill ms, decode ms a token,
 tokens/s, and on the card the peak memory allocated) and the first three
 requests' tokens. The JAX launcher's ``--checkpoint-dir`` waits for the
@@ -63,6 +68,13 @@ def main(argv: Sequence[str] | None = None) -> Engine:
         ap.error("--periods cuts the depth of the full config: it needs --full")
     spec = get(args.arch)
     cfg = spec.config if args.full else spec.smoke
+    if cfg.input_kind != "tokens":
+        how = ("models.encdec.prefill(frames, tokens) and models.encdec.decode_step"
+               if cfg.n_encoder_layers else
+               "models.transformer.prefill(embeds=, positions=) and decode_step(positions=)")
+        raise ValueError(f"{args.arch} takes {cfg.input_kind.replace('_', ' ')}: this launcher "
+                         f"serves token prompts; drive it through {how}, as the JAX package "
+                         "does")
     if args.periods is not None:
         cfg = dataclasses.replace(cfg, n_layers=args.periods * len(cfg.period))
     rt = Runtime(remat=False, moe_groups=1, mamba_chunk=16, mlstm_chunk=16,

@@ -8,7 +8,6 @@ dtype and filled by ``init_weights`` from an explicit ``torch.Generator``.
 
 The JAX package's ``annotate`` and ``gather_weight`` calls are sharding
 hints that change no math; one card shards nothing, so they are left out.
-``attn_cross_decode`` (encoder-decoder) waits for the ``encdec`` slice.
 """
 from __future__ import annotations
 
@@ -58,32 +57,63 @@ class Attention(nn.Module):
             dense_init_(w, d, g)
         dense_init_(self.wo, h * hd, g)
 
-    def _project(self, h: torch.Tensor):
+    def _project(self, h: torch.Tensor, src: torch.Tensor | None = None):
+        """q from ``h``; k and v from ``src`` (an encoder memory), else ``h``."""
         cd = self.cfg.cdtype
+        src = h if src is None else src
         q = torch.einsum("bsd,dhk->bshk", h, self.wq.to(cd))
-        k = torch.einsum("bsd,dhk->bshk", h, self.wk.to(cd))
-        v = torch.einsum("bsd,dhk->bshk", h, self.wv.to(cd))
+        k = torch.einsum("bsd,dhk->bshk", src, self.wk.to(cd))
+        v = torch.einsum("bsd,dhk->bshk", src, self.wv.to(cd))
         return q, k, v
 
     def _norm(self, x: torch.Tensor) -> torch.Tensor:
         return common.rmsnorm(x, self.norm) if self.cfg.norm == "rmsnorm" else x
 
     def _rope(self, q, k, positions):
+        """Rotary embeddings at ``positions``: [B,S], or under M-RoPE
+        (``cfg.mrope_sections``) [3,B,S], the t, h and w streams. M-RoPE
+        given [B,S] positions raises: the JAX package's ``apply_mrope``
+        indexes their batch axis as the three streams and fails with an
+        IndexError (R7), so its default positions, which ``forward`` and
+        the decode step build when none are given, cannot run."""
         if positions is None:
             return q, k
-        theta = self.cfg.rope_theta
-        return common.apply_rope(q, positions, theta), common.apply_rope(k, positions, theta)
+        cfg = self.cfg
+        if cfg.mrope_sections is None:
+            return (common.apply_rope(q, positions, cfg.rope_theta),
+                    common.apply_rope(k, positions, cfg.rope_theta))
+        if positions.dim() != 3 or positions.shape[0] != 3:
+            raise ValueError(f"{cfg.name}: M-RoPE takes positions [3, B, S] (t, h, w); got "
+                             f"{tuple(positions.shape)}: pass positions (R7)")
+        return (common.apply_mrope(q, positions, cfg.mrope_sections, cfg.rope_theta),
+                common.apply_mrope(k, positions, cfg.mrope_sections, cfg.rope_theta))
 
     def forward(self, x: torch.Tensor, rt: Runtime, positions: torch.Tensor | None,
-                *, causal: bool = True):
+                *, causal: bool = True, kv: torch.Tensor | None = None):
         """Full-sequence attention (train / prefill). x: [B,S,D]. Returns
-        (x + attention, (k, v)) with k, v [B,S,KH,hd] after rope."""
-        q, k, v = self._project(self._norm(x))
-        q, k = self._rope(q, k, positions)
-        out = common.attention(q, k, v, causal=causal, impl=rt.attn_impl,
+        (x + attention, (k, v)) with k, v [B,S,KH,hd] after rope.
+
+        ``kv``: an encoder memory [B,Se,D] for cross-attention: keys and
+        values are projected from it, no rope, and every query sees every
+        key (not causal)."""
+        q, k, v = self._project(self._norm(x), kv)
+        if kv is None:
+            q, k = self._rope(q, k, positions)
+        out = common.attention(q, k, v, causal=causal and kv is None, impl=rt.attn_impl,
                                block_k=rt.block_k, p_dtype=getattr(torch, rt.attn_p_dtype))
         y = torch.einsum("bshk,hkd->bsd", out, self.wo.to(self.cfg.cdtype))
         return x + y, (k, v)
+
+    def cross_decode(self, x: torch.Tensor, mem_kv: tuple[torch.Tensor, torch.Tensor]):
+        """Cross-attention decode step (the JAX package's ``attn_cross_decode``)
+        against the encoder memory's precomputed keys and values [B,Se,KH,hd].
+        x: [B,1,D]. Its norm is RMSNorm whatever ``cfg.norm`` says, as in
+        the JAX package."""
+        cd = self.cfg.cdtype
+        q = torch.einsum("bsd,dhk->bshk", common.rmsnorm(x, self.norm), self.wq.to(cd))
+        k, v = mem_kv
+        out = common.decode_attention(q[:, 0], k, v, kv_len=k.shape[1])
+        return x + torch.einsum("bhk,hkd->bd", out, self.wo.to(cd))[:, None]
 
     def init_cache(self, batch: int, max_len: int, dtype: torch.dtype, device) -> dict:
         shape = (batch, max_len, self.cfg.n_kv_heads, self.cfg.hd)

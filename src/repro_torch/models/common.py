@@ -11,10 +11,12 @@ Attention comes in three implementations with one math:
                      CPU tensors).
 GQA is native (KV heads broadcast over groups of query heads).
 
-``apply_mrope`` (Qwen2-VL) and ``chunked_softmax_xent`` (training) are not
-ported yet: they come with the slices that port qwen2-vl and training.
+``chunked_softmax_xent`` (training) is not ported yet: it comes with the
+slice that ports training.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -82,17 +84,47 @@ def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim))
 
 
+@functools.cache
+def _device_freqs(head_dim: int, theta: float, device: torch.device) -> torch.Tensor:
+    """:func:`rope_freqs` on ``device``, made once: a copy from the host at
+    every call would wait for the card's queue at every decode step."""
+    return torch.from_numpy(rope_freqs(head_dim, theta)).to(device)
+
+
+@functools.cache
+def _section_ids(sections: tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """The M-RoPE stream (0, 1, 2) that drives each frequency, on ``device``."""
+    return torch.from_numpy(np.repeat(np.arange(len(sections)), sections)).to(device)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4) -> torch.Tensor:
     """x: [B,S,H,D]; positions: [B,S] (int). Pairwise (x0, x1) rotation of
     the two halves of D; the result is contiguous."""
-    d = x.shape[-1]
-    freqs = torch.from_numpy(rope_freqs(d, theta)).to(x.device)       # [D/2]
-    angles = positions[..., None].float() * freqs                     # [B,S,D/2]
+    freqs = _device_freqs(x.shape[-1], theta, x.device)                # [D/2]
+    return _rotate(x, positions[..., None].float() * freqs)
+
+
+def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """Rotate the pairs (x0, x1) of the two halves of x's last axis by
+    ``angles`` [B,S,D/2], in float32; the result in x's dtype."""
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, sections: tuple[int, ...],
+                theta: float = 1e4) -> torch.Tensor:
+    """Qwen2-VL M-RoPE. x: [B,S,H,D]; positions: [3,B,S] (the t, h and w
+    streams). Each band of frequencies is driven by one stream, the bands'
+    widths given by ``sections`` (summing to D/2)."""
+    d = x.shape[-1]
+    if sum(sections) != d // 2:
+        raise ValueError(f"M-RoPE sections {sections} must sum to D/2 = {d // 2}")
+    freqs = _device_freqs(d, theta, x.device)                          # [D/2]
+    sec_id = _section_ids(tuple(sections), x.device)                   # [D/2]
+    return _rotate(x, positions.float()[sec_id].permute(1, 2, 0) * freqs)
 
 
 # ----------------------------------------------------------------- attention

@@ -103,7 +103,9 @@ class ModelConfig:
     # ------------------------------------------------------- param counting
     def param_count(self) -> tuple[int, int]:
         """(total params, active params per token), the JAX package's formula;
-        equal to the port model's parameter count for every ported family."""
+        equal to the port model's parameter count for every family but
+        xLSTM, whose mLSTM's group-norm weight (``gn``, Di values a layer)
+        the formula leaves out, as the JAX package's does."""
         d, f, hd = self.d_model, self.d_ff, self.hd
         di, n, dtr = self.ssm_inner, self.ssm_state, self.dt_r
         dh = d // max(self.n_heads, 1)

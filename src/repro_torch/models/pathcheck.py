@@ -26,7 +26,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.models import blocks, common, transformer
+from repro_torch.models import blocks, common, encdec, transformer
 from repro_torch.models.config import Runtime
 
 # every layer output and the logits: 2^-5 * (|want| + rms(row)), four bf16
@@ -116,16 +116,19 @@ def _row(step: str, layer: str, kind, out: float, cache=(None, None)) -> dict:
 
 @torch.no_grad()
 def prefill_layers(model: transformer.LM, kern: Runtime, plain: Runtime,
-                   tokens: torch.Tensor) -> tuple[list[dict], list, list]:
-    """Each layer of a prefill of ``tokens`` on both paths, given the plain
+                   tokens: torch.Tensor | None = None, *, embeds: torch.Tensor | None = None,
+                   positions: torch.Tensor | None = None) -> tuple[list[dict], list, list]:
+    """Each layer of a prefill of ``tokens`` (or ``embeds``, at
+    ``positions``, [3,B,S] under M-RoPE) on both paths, given the plain
     path's input, the plain path taking the kernel path's expert choices.
     Returns (one row a layer and one for the last-token logits, the kernel
     path's caches, the plain path's caches); a row holds the output's ratio
     at LAYER_TOL, the KV or conv cache's at LAYER_TOL, the Mamba state's at
     STATE_TOL, and the worst of them."""
-    x = transformer._embed_in(model, tokens)
+    x = transformer._embed_in(model, tokens, embeds)
     b, s = x.shape[:2]
-    pos = torch.arange(s, device=x.device)[None].expand(b, s)
+    pos = (torch.arange(s, device=x.device)[None].expand(b, s) if positions is None
+           else positions.to(x.device))
     rows, caches_k, caches_p = [], [], []
     for i, period in enumerate(model.periods):
         pc_k, pc_p = {}, {}
@@ -149,13 +152,14 @@ def prefill_layers(model: transformer.LM, kern: Runtime, plain: Runtime,
 
 @torch.no_grad()
 def decode_layers(model: transformer.LM, caches_k: list, caches_p: list, tokens: torch.Tensor,
-                  pos: int, kern: Runtime, plain: Runtime) -> list[dict]:
-    """The decode step of ``tokens`` ([B, 1]) at ``pos`` after a prefill of
-    ``pos`` tokens, each layer given the plain path's input and run on each
-    path's own prefill cache, the same expert choices on both. Returns a
-    row a layer (as :func:`prefill_layers`', of the output and of the cache
-    the step hands on) and one for the logits. The caches are not
-    changed."""
+                  pos: int, kern: Runtime, plain: Runtime,
+                  positions: torch.Tensor | None = None) -> list[dict]:
+    """The decode step of ``tokens`` ([B, 1]) at ``pos`` (rope ``positions``
+    where they are not ``pos``) after a prefill of ``pos`` tokens, each
+    layer given the plain path's input and run on each path's own prefill
+    cache, the same expert choices on both. Returns a row a layer (as
+    :func:`prefill_layers`', of the output and of the cache the step hands
+    on) and one for the logits. The caches are not changed."""
     cfg = model.cfg
     ck, cp = (transformer.pad_cache(c, cfg, pos + 1) for c in (caches_k, caches_p))
     x = transformer._embed_in(model, tokens)
@@ -163,9 +167,9 @@ def decode_layers(model: transformer.LM, caches_k: list, caches_p: list, tokens:
     for i, (period, pc_k, pc_p) in enumerate(zip(model.periods, ck, cp)):
         for name, block in period.items():
             with pinned_routing(RoutingLog()) as log:
-                y_k, new_k = block.decode(x, pc_k[name], pos, kern)
+                y_k, new_k = block.decode(x, pc_k[name], pos, kern, positions)
             with pinned_routing(log.replayed()):
-                y_p, new_p = block.decode(x, pc_p[name], pos, plain)
+                y_p, new_p = block.decode(x, pc_p[name], pos, plain, positions)
             rows.append(_row("decode", f"{i}.{name}", block.layer,
                              row_scaled_ratio(y_k, y_p, LAYER_TOL), _cache_ratios(new_k, new_p)))
             x = y_p
@@ -173,6 +177,83 @@ def decode_layers(model: transformer.LM, caches_k: list, caches_p: list, tokens:
     lg_k = common.top1_logits(common.rmsnorm(y_k, model.final_norm)[:, 0], emb)
     lg_p = common.top1_logits(common.rmsnorm(y_p, model.final_norm)[:, 0], emb)
     rows.append(_row("decode", "logits", None, row_scaled_ratio(lg_k, lg_p, LAYER_TOL)))
+    return rows
+
+
+def _logits_row(step: str, emb: torch.Tensor, norm: torch.Tensor, h_k: torch.Tensor,
+                h_p: torch.Tensor) -> dict:
+    return _row(step, "logits", None, row_scaled_ratio(
+        common.top1_logits(common.rmsnorm(h_k, norm), emb),
+        common.top1_logits(common.rmsnorm(h_p, norm), emb), LAYER_TOL))
+
+
+@torch.no_grad()
+def encdec_prefill_layers(model: encdec.EncDec, kern: Runtime, plain: Runtime,
+                          frames: torch.Tensor, tokens: torch.Tensor
+                          ) -> tuple[list[dict], list, list]:
+    """:func:`prefill_layers` for an encoder-decoder: each encoder layer
+    (attention and FFN), the memory (the encoder's norm), and each decoder
+    layer (self-attention, cross-attention to the plain path's memory and
+    FFN) of both paths given the plain path's input; then the logits.
+    Returns (the rows, the kernel path's caches, the plain path's)."""
+    cd = model.cfg.cdtype
+    x = frames.to(model.embed.device, cd)
+    b, se = x.shape[:2]
+    pos = torch.arange(se, device=x.device)[None].expand(b, se)
+    rows = []
+    for i, layer in enumerate(model.encoder):
+        y_k = layer["ffn"](layer["attn"](x, kern, pos, causal=False)[0], kern)
+        y_p = layer["ffn"](layer["attn"](x, plain, pos, causal=False)[0], plain)
+        rows.append(_row("encode", f"enc.{i}", ("attn", "dense"),
+                         row_scaled_ratio(y_k, y_p, LAYER_TOL)))
+        x = y_p
+    mem_k, mem = common.rmsnorm(y_k, model.enc_norm), common.rmsnorm(y_p, model.enc_norm)
+    rows.append(_row("encode", "memory", None, row_scaled_ratio(mem_k, mem, LAYER_TOL)))
+    x = torch.nn.functional.embedding(tokens.to(x.device, torch.long), model.embed).to(cd)
+    s = x.shape[1]
+    pos = torch.arange(s, device=x.device)[None].expand(b, s)
+    caches_k, caches_p = [], []
+    for i, layer in enumerate(model.decoder):
+        outs = []
+        for rt, caches in ((kern, caches_k), (plain, caches_p)):
+            y, (k, v) = layer["self"](x, rt, pos)
+            y, (ck, cv) = layer["cross"](y, rt, None, kv=mem)
+            outs.append(layer["ffn"](y, rt))
+            caches.append({"k": k.to(cd), "v": v.to(cd), "ck": ck.to(cd), "cv": cv.to(cd)})
+        rows.append(_row("prefill", f"dec.{i}", ("attn", "dense"),
+                         row_scaled_ratio(outs[0], outs[1], LAYER_TOL),
+                         _cache_ratios(caches_k[-1], caches_p[-1])))
+        x = outs[1]
+    rows.append(_logits_row("prefill", model.embed, model.final_norm, outs[0][:, -1],
+                            outs[1][:, -1]))
+    return rows, caches_k, caches_p
+
+
+@torch.no_grad()
+def encdec_decode_layers(model: encdec.EncDec, caches_k: list, caches_p: list,
+                         tokens: torch.Tensor, pos: int, kern: Runtime,
+                         plain: Runtime) -> list[dict]:
+    """:func:`decode_layers` for an encoder-decoder: each decoder layer of
+    the step at ``pos`` given the plain path's input and run on each path's
+    own prefill cache; a row a layer and one for the logits. The caches are
+    not changed."""
+    cd = model.cfg.cdtype
+    ck, cp = (encdec.pad_cache(c, pos + 1) for c in (caches_k, caches_p))
+    x = torch.nn.functional.embedding(tokens.to(model.embed.device, torch.long),
+                                      model.embed).to(cd)
+    rows = []
+    for i, (layer, c_k, c_p) in enumerate(zip(model.decoder, ck, cp)):
+        outs, new = [], []
+        for rt, c in ((kern, c_k), (plain, c_p)):
+            y, kv = layer["self"].decode(x, {"k": c["k"].clone(), "v": c["v"].clone()}, pos, rt)
+            y = layer["cross"].cross_decode(y, (c["ck"], c["cv"]))
+            outs.append(layer["ffn"](y, rt))
+            new.append(kv)
+        rows.append(_row("decode", f"dec.{i}", ("attn", "dense"),
+                         row_scaled_ratio(outs[0], outs[1], LAYER_TOL), _cache_ratios(*new)))
+        x = outs[1]
+    rows.append(_logits_row("decode", model.embed, model.final_norm, outs[0][:, 0],
+                            outs[1][:, 0]))
     return rows
 
 

@@ -8,10 +8,11 @@ JAX package's ``scan_layers`` and ``remat`` knobs change nothing here.
 Caches are a list with one dict per period, ``{"l<i>": {...}}``, where the
 JAX package stacks them over a leading periods axis.
 
-Ported mixers: attention and Mamba; FFNs: dense, MoE and none. The xLSTM
-mixers (``mlstm``, ``slstm``), encoder-decoder configs, M-RoPE and
-patch/frame embedding inputs raise ``NotImplementedError``: they are later
-slices of the port (ROADMAP.md, Queue 1, items 13b-13d).
+Mixers: attention (rope, or M-RoPE under ``cfg.mrope_sections``), Mamba,
+mLSTM and sLSTM; FFNs: dense, MoE and none. ``forward`` and ``prefill``
+take token ids or embeddings (``embeds``: a vision or audio frontend's
+output, which the JAX package also leaves to the caller). Encoder-decoder
+configs are :mod:`repro_torch.models.encdec`'s.
 """
 from __future__ import annotations
 
@@ -23,49 +24,25 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels.common import resolve_device
-from repro_torch.models import blocks, common, ssm
+from repro_torch.models import blocks, common, ssm, xlstm
 from repro_torch.models.config import Layer, ModelConfig, Runtime
 
 Cache = list[dict[str, dict[str, torch.Tensor]]]
-
-NOT_PORTED = {
-    "mlstm": "the xLSTM mixers (mlstm, slstm) are not ported yet; they come with the "
-             "xlstm slice (ROADMAP.md, Queue 1, item 13b)",
-    "encdec": "encoder-decoder configs are not ported yet; they come with the encdec "
-              "slice (ROADMAP.md, Queue 1, item 13c)",
-    "mrope": "M-RoPE and patch/frame embedding inputs are not ported yet; they come "
-             "with the qwen2-vl slice (ROADMAP.md, Queue 1, item 13d)",
-}
-NOT_PORTED["slstm"] = NOT_PORTED["mlstm"]
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet."""
-    for mixer, _ in cfg.period:
-        if mixer in NOT_PORTED:
-            raise NotImplementedError(f"{cfg.name}: {NOT_PORTED[mixer]}")
-    if cfg.n_encoder_layers:
-        raise NotImplementedError(f"{cfg.name}: {NOT_PORTED['encdec']}")
-    if cfg.mrope_sections is not None:
-        raise NotImplementedError(f"{cfg.name}: {NOT_PORTED['mrope']}")
+MIXERS = {"attn": blocks.Attention, "mamba": ssm.Mamba, "mlstm": xlstm.MLSTM,
+          "slstm": xlstm.SLSTM}
 
 
 # ------------------------------------------------------------------- blocks
 class Block(nn.Module):
-    """One layer: a mixer (attention or Mamba) and an FFN (dense, MoE or
-    none)."""
+    """One layer: a mixer (attention, Mamba, mLSTM or sLSTM) and an FFN
+    (dense, MoE or none)."""
 
     def __init__(self, layer: Layer, cfg: ModelConfig, device=None):
         super().__init__()
         mixer, ffn = layer
         self.layer = layer
         self.cfg = cfg
-        if mixer == "attn":
-            self.mixer = blocks.Attention(cfg, device)
-        elif mixer == "mamba":
-            self.mixer = ssm.Mamba(cfg, device)
-        else:
-            raise NotImplementedError(f"{cfg.name}: {NOT_PORTED[mixer]}")
+        self.mixer = MIXERS[mixer](cfg, device)
         self.ffn = (blocks.MLP(cfg, device=device) if ffn == "dense"
                     else blocks.MoE(cfg, device) if ffn == "moe" else None)
 
@@ -110,9 +87,14 @@ class LM(nn.Module):
     """The decoder-only LM of one :class:`ModelConfig`. Parameters are made
     empty on ``device`` in ``cfg.pdtype``; :func:`init_lm` fills them."""
 
+    # the module lists whose layers the JAX package stacks on a leading axis
+    STACKED = ("periods",)
+
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        check_ported(cfg)
+        if cfg.n_encoder_layers:
+            raise ValueError(f"{cfg.name} is an encoder-decoder config: models.encdec.EncDec "
+                             "builds it")
         self.cfg = cfg
         d, v, pd = cfg.d_model, cfg.vocab_size, cfg.pdtype
         self.embed = blocks.param(v, d, dtype=pd, device=device)
@@ -153,17 +135,22 @@ def n_params(model: nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
 
 
-def _embed_in(model: LM, tokens: torch.Tensor, embeds=None) -> torch.Tensor:
+def _embed_in(model: LM, tokens: torch.Tensor | None, embeds=None) -> torch.Tensor:
+    """The input activations: ``embeds`` [B,S,D] cast to the compute dtype
+    where given (a frontend's patch or frame embeddings), else the token
+    ids' embeddings."""
     if embeds is not None:
-        raise NotImplementedError(f"{model.cfg.name}: {NOT_PORTED['mrope']}")
+        return embeds.to(model.embed.device, model.cfg.cdtype)
     return F.embedding(tokens.to(model.embed.device, torch.long),
                        model.embed).to(model.cfg.cdtype)
 
 
 def forward(model: LM, rt: Runtime, *, tokens=None, embeds=None, positions=None,
             want_cache: bool = False):
-    """Full-sequence forward. Returns (hidden [B,S,D], aux, caches: one dict
-    per period, empty dicts unless ``want_cache``)."""
+    """Full-sequence forward of ``tokens`` or ``embeds``. ``positions``
+    default to 0..S-1 in every row ([B,S]); an M-RoPE config needs its own
+    [3,B,S] (R7). Returns (hidden [B,S,D], aux, caches: one dict per
+    period, empty dicts unless ``want_cache``)."""
     x = _embed_in(model, tokens, embeds)
     b, s = x.shape[:2]
     if positions is None:
@@ -223,8 +210,10 @@ def prefill(model: LM, rt: Runtime, *, tokens=None, embeds=None, positions=None,
 def decode_step(model: LM, cache: Cache, tokens: torch.Tensor, pos, rt: Runtime,
                 positions=None):
     """One token for the whole batch. tokens: [B,1]; pos: a scalar, or [B]
-    per-row positions. Attention caches are written in place; returns
-    (logits [B,V] float32, the new cache)."""
+    per-row positions (the KV write index); ``positions`` the rope
+    positions where they are not ``pos`` ([3,B,1] under M-RoPE). Attention
+    caches are written in place; returns (logits [B,V] float32, the new
+    cache)."""
     x = _embed_in(model, tokens)
     new_cache: Cache = []
     for period, pc in zip(model.periods, cache):
@@ -249,20 +238,21 @@ def _flatten(tree: dict[str, Any], prefix: str = "") -> dict[str, np.ndarray]:
 
 
 @torch.no_grad()
-def load_jax_params(model: LM, tree: dict[str, Any]) -> LM:
-    """Fill ``model``'s parameters from the JAX package's ``init_lm`` tree,
-    given as nested dicts of numpy arrays (each ``Param``'s value; the
-    caller converts, since this package imports no JAX). The leading
-    periods axis that the JAX package stacks onto every layer parameter is
-    split, period p going to ``periods.<p>``; each array is cast to the
-    parameter's dtype. Raises on any name or shape left over on either
-    side."""
+def load_jax_params(model: nn.Module, tree: dict[str, Any]) -> nn.Module:
+    """Fill ``model``'s parameters from the JAX package's ``init_lm`` tree
+    (or, for an :class:`encdec.EncDec`, its ``init_encdec`` tree), given as
+    nested dicts of numpy arrays (each ``Param``'s value; the caller
+    converts, since this package imports no JAX). The leading axis that the
+    JAX package stacks onto every layer parameter is split, layer p of
+    ``periods`` (``encoder``, ``decoder``: ``model.STACKED``) going to
+    ``periods.<p>``; each array is cast to the parameter's dtype. Raises on
+    any name or shape left over on either side."""
     flat = {}
     for name, arr in _flatten(tree).items():
-        if name.startswith("periods."):
-            rest = name.removeprefix("periods.")
+        top, _, rest = name.partition(".")
+        if top in model.STACKED:
             for p in range(arr.shape[0]):
-                flat[f"periods.{p}.{rest}"] = arr[p]
+                flat[f"{top}.{p}.{rest}"] = arr[p]
         else:
             flat[name] = arr
     params = dict(model.named_parameters())

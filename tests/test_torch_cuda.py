@@ -288,9 +288,11 @@ def test_half_row_o3_chain_equals_eager(dev, name):
 
 def test_table2_plan_records_every_probe_on_card(dev, tmp_path, monkeypatch):
     """``--plan table2`` on the card, cut to a row of each category, K2's
-    five new rows and clock overhead, O3 chains of (8, 32) ops: a record
-    for every probe, each timed by events, and K2 launched."""
-    monkeypatch.setattr(measure, "_CHAIN_LENS", {"O0": (2, 10), "O3": (8, 32)})
+    five new rows and clock overhead, O3 chains of the plan's own (64, 512)
+    ops: a record for every probe, each timed by events, and K2 launched.
+    (At (8, 32) the 24 steps between the chains of ``add.float64``, 4.1 ns
+    each, were within the events' noise: a slope of -1.333 ns/op.)"""
+    monkeypatch.setattr(measure, "_CHAIN_LENS", {"O0": (2, 10), "O3": (64, 512)})
     ops = ("clock_overhead", "rem.s", "xor", "min.float32", "add.float64", "fma.float16",
            "add.cc", "tanh", "bfe", "div.u.regular", "div.u.irregular", "div.u.runtime",
            "rem.u", "mul64hi")
@@ -780,3 +782,58 @@ def test_serve_launcher_runs_the_kernels_on_the_card(dev, capsys):
     assert launches_since(before) == {"flash_attention": 1, "mamba_scan": 7}
     out = capsys.readouterr().out
     assert "kernels on" in out and "peak memory allocated" in out
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "seamless-m4t-large-v2"])
+def test_embedding_archs_kernel_path_holds_against_the_plain_path(dev, arch):
+    """The smoke configs of the two architectures that take a frontend's
+    embeddings, on the card: K5 launched once a prefill attention (qwen2-vl
+    causal, 6 query heads a KV head, M-RoPE; seamless's encoder non-causal,
+    its cross-attention of 96 queries to 24 keys), and each layer of the
+    kernel path within the layer check's limits of the plain path's."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get
+    from repro_torch.kernels.ops import launch_counts, launches_since
+    from repro_torch.models import encdec, pathcheck, transformer
+    from repro_torch.models.config import Runtime
+
+    cfg = get(arch).smoke
+    kern = Runtime(attn_impl="pallas")
+    plain = dataclasses.replace(kern, attn_impl="plain")
+    g = torch.Generator().manual_seed(0)
+    toks = torch.randint(1, cfg.vocab_size, (2, 97), generator=g).to(dev)
+    before = launch_counts()
+    if cfg.n_encoder_layers:
+        model = encdec.init_encdec(cfg, seed=0, device=dev)
+        frames = torch.randn(2, 24, cfg.d_model, generator=g).to(dev, torch.bfloat16)
+        encdec.prefill(model, kern, frames, toks[:, :96])
+        assert launches_since(before) == {"flash_attention": cfg.n_encoder_layers
+                                          + 2 * cfg.n_layers}
+        rows, ck, cp = pathcheck.encdec_prefill_layers(model, kern, plain, frames, toks[:, :96])
+        rows += pathcheck.encdec_decode_layers(model, ck, cp, toks[:, 96:], 96, kern, plain)
+    else:
+        model = transformer.init_lm(cfg, seed=0, device=dev)
+        emb = torch.randn(2, 96, cfg.d_model, generator=g).to(dev, torch.bfloat16)
+        h, w = torch.meshgrid(torch.arange(8), torch.arange(12), indexing="ij")
+        pos = torch.stack([torch.zeros(96, dtype=torch.long), h.flatten(), w.flatten()])
+        pos = pos[:, None].expand(3, 2, 96).to(dev)
+        transformer.prefill(model, kern, embeds=emb, positions=pos)
+        assert launches_since(before) == {"flash_attention": cfg.n_layers}
+        rows, ck, cp = pathcheck.prefill_layers(model, kern, plain, embeds=emb, positions=pos)
+        nxt = torch.full((3, 2, 1), 12, device=dev)
+        rows += pathcheck.decode_layers(model, ck, cp, toks[:, 96:], 96, kern, plain,
+                                        positions=nxt)
+    assert max(r["worst"] for r in rows) <= 1.0, rows
+
+
+def test_xlstm_serves_on_the_card(dev, capsys):
+    """The xLSTM smoke config through the launcher on the card: no kernel
+    (the JAX package has none for these mixers), tokens in the vocabulary."""
+    from repro_torch.kernels.ops import launch_counts, launches_since
+    from repro_torch.launch import serve
+
+    before = launch_counts()
+    eng = serve.main(["--arch", "xlstm-350m", "--requests", "3", "--max-new", "4"])
+    assert eng.device == dev and launches_since(before) == {}
+    assert "xlstm-smoke (8 layers" in capsys.readouterr().out
