@@ -16,8 +16,9 @@ Phases, each of which must pass, in this order but for 10-12 (fused,
 serve and archs), which need no compiled chain and run right after phase
 2, while the compile workers build the plans' chains (their host-side
 times, prefill and decode ms, are taken beside those compiles; the card's
-are its own). Phase 13 times the kernels after the pool has stopped, and
-K1-K3's launches on the plans are counted in after it:
+are its own). Phase 13, serving, runs after the pool has stopped, on the
+rows the plans recorded; phase 14 times the kernels after it, and K1-K3's
+launches on the plans are counted in after that:
 
 1. build the CUDA kernels from ``src/repro_torch/csrc`` (into ``build/``),
    one nvcc per source, all at once, print ptxas's register and spill
@@ -184,7 +185,24 @@ K1-K3's launches on the plans are counted in after it:
    without its causal mask, K5 made causal on the encoder, the decode step
    from a zero mLSTM state); prefill ms, decode ms a token, peak memory;
    no Dynamo frame. Each model is freed before the next;
-13. time each kernel, its plain version, its bound (the larger of bytes
+13. ``serving``: ``characterize --plan serving --table --audit`` through
+   the CLI on a copy of the run's DB with the fused plan's rows merged in:
+   its 18 deps (the QUICK_OPS at O3, the chase rungs of 8 KiB, 128 KiB and
+   2 MiB) cache hits, its 4 serving-tiny cells (prefill and decode at 1 x
+   16 and 2 x 64, the JAX package's tiny dense model, no kernel on their
+   path) measured with ``exec=eager``, a positive prediction and a
+   coverage in (0, 1], no kernel launched; then the full-width cells
+   through ``Session.run``: Jamba-v0.1 cut to one period with phase
+   serve's kernels runtime and seed (one model build for both), a prefill
+   of 8 x 2048 tokens and a decode step at position 2048 on a cache of
+   2080, each recorded once (``core.hlo_analysis.record_ops``), priced by
+   ``RecordLatencyEstimator`` from the run's rows and timed on events. The
+   prefill's record must hold one K5 site and seven K7 sites, priced from
+   the ``inkernel.fused.*`` rows (no ``kernel:`` in ``unpriced_opcodes``),
+   the decode step's none; only K5 and K7 launched, seven K7 a K5; no
+   Dynamo frame. It prints each cell's predicted and measured ns, their
+   ratio, coverage, bound, unpriced ops and the record's size;
+14. time each kernel, its plain version, its bound (the larger of bytes
    and operations; K5 float32's operations at the least of float32 FMAs,
    3xTF32 and 3xBF16 on the tensor cores, the choice printed; K7's at its
    float32 operations, its exponentials on the SFU alone printed beside
@@ -208,10 +226,10 @@ K1-K3's launches on the plans are counted in after it:
    256 MiB of other data went through L2 before each launch, print the
    calibrated SM clock, and time op_chain's loop: each step's time with 1
    and with 32 steps to an iteration;
-14. print the ``{"kernels": [...]}`` line (each kernel with the design each
+15. print the ``{"kernels": [...]}`` line (each kernel with the design each
    dtype runs; K4-K7's launches summed over the fused run and phases
-   serve and archs), the card's name and power limit, and, last, ``{"ok": true,
-   "device": {...}}``.
+   serve, archs and serving), the card's name and power limit, and, last,
+   ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when no CUDA card is visible or the
 repository's sources are missing.
@@ -1475,9 +1493,10 @@ def probe_twin(probe, twins):
     return next(t for t in twins if t.working_set_bytes == probe.working_set_bytes)
 
 
-def run_fused(dev: torch.device) -> dict[str, int]:
+def run_fused(dev: torch.device):
     """Phase 8: the fused plan through the CLI; returns each kernel's
-    launches during that run."""
+    launches during that run, and its DB (the ``inkernel.fused.*`` rows
+    that phase serving prices the kernels' sites from)."""
     from repro_torch.api.cli import main as cli_main
     from repro_torch.api.plan import named_plan
     from repro_torch.core.latency_db import LatencyDB, current_environment
@@ -1513,7 +1532,7 @@ def run_fused(dev: torch.device) -> dict[str, int]:
     for name in JAMBA_TIMED:
         if launches[name] == 0:
             fail(f"kernel {name} was not launched by the fused run")
-    return launches
+    return launches, db
 
 
 # Phase serve: the launcher's command line (Jamba-v0.1 at full width, one
@@ -1632,6 +1651,167 @@ def run_serve(dev: torch.device) -> dict[str, int]:
     del eng, model
     gc.collect()
     torch.cuda.empty_cache()
+    return launches
+
+
+# Phase serving: characterize --plan serving through the CLI on the run's
+# DB (its 18 deps, QUICK_OPS at O3 and three chase rungs, cache hits; the 4
+# serving-tiny cells measured, no kernel on their path), then the
+# full-width cells: Jamba-v0.1 cut to one period (phase serve's model and
+# its launcher's --kernels runtime, weights from seed 0), a prefill of 8 x
+# 2048 tokens through K5 and K7 and a decode step at position 2048 on a
+# cache of 2080, priced from the run's own rows (the QUICK_OPS, table2's
+# rows, the chase ladders, the fused plan's inkernel.fused.* rows with
+# their unit_bytes) after the pool has stopped (PERF.md section 2).
+SERVING_FULL = dict(batch=8, prompt=2048, max_len=2080)
+# one record of the prefill: K5 at its attention layer, K7 at each Mamba layer
+SERVING_SITES = {"flash_attention": 1, "mamba_scan": 7}
+
+
+def serving_line(label: str, rec, report=None, record=None) -> None:
+    """One cell: predicted, measured, their ratio, coverage and bound, and
+    where the probe's report and record are given, what the estimator could
+    not price and what the record holds."""
+    from repro_torch.core.perfmodel import servingpoint_from_record
+    from repro_torch.utils import parse_kv_notes
+
+    pt = servingpoint_from_record(rec)
+    if report is None:
+        print(f"serving: {label} {rec.op}: predicted_ns {pt.predicted_ns:.1f}, measured_ns "
+              f"{pt.measured_ns:.1f} (MAD {rec.mad_ns:.1f}), ratio {pt.ratio:.6g}, coverage "
+              f"{pt.coverage:.4f}, bound {parse_kv_notes(rec.notes)['bound']}; notes {rec.notes}")
+        return
+    unpriced = ", ".join(f"{op} x{n:g}" for op, n in report.unpriced_opcodes) or "none"
+    classes = ", ".join(f"{k} {v.ns / 1e6:.6g} ms" for k, v in sorted(
+        report.by_class.items(), key=lambda kv: -kv[1].ns)[:6])
+    print(f"serving: {label} {rec.op}: predicted_ns {pt.predicted_ns:.1f}, measured_ns "
+          f"{pt.measured_ns:.1f} (MAD {rec.mad_ns:.1f}), ratio {pt.ratio:.6g}, coverage "
+          f"{pt.coverage:.4f}, bound {report.bound} (compute {report.compute_ns:.1f} ns, "
+          f"memory {report.memory_ns:.1f} ns over {report.bytes_accessed:.0f} B); "
+          f"unpriced_opcodes {unpriced}; by class {classes}; record: "
+          f"{sum(record.histogram.values())} ops, {record.matmul_flops:.6g} matmul FLOPs, "
+          f"sites {dict(record.site_counts())}; notes {rec.notes}")
+
+
+def run_serving_tiny(dev: torch.device, db_path: str) -> dict[str, int]:
+    """``characterize --plan serving --table --audit`` on the DB at
+    ``db_path``, the counts set to 0 just before and read just after: every
+    dep a cache hit, the four serving-tiny cells measured with
+    ``exec=eager``, a positive prediction and a coverage in (0, 1], and no
+    kernel launched (serving-tiny runs ``attn_impl="auto"``)."""
+    from repro_torch.api.cli import main as cli_main
+    from repro_torch.api.plan import named_plan
+    from repro_torch.core.latency_db import LatencyDB, current_environment
+    from repro_torch.utils import parse_kv_notes
+
+    env = current_environment(dev)
+    plan = named_plan("serving")
+    before = LatencyDB(db_path)
+    missing = [p.op for p in plan if p.category != "serving" and p.key(env) not in before]
+    if missing:
+        fail(f"serving: the plan's deps {missing} are not in the run's DB")
+    zero_counts()
+    rc = cli_main(["characterize", "--plan", "serving", "--db", db_path, "--table", "--audit"])
+    launches = {k: n for k, n in read_counts().items() if n}
+    db = LatencyDB(db_path)
+    ops = {p.op for p in plan}
+    failed = [f for f in db.failures() if f.op in ops]
+    if rc != 0 or failed:
+        fail(f"serving: characterize --plan serving exited {rc}: {failed}")
+    if launches:
+        fail(f"serving: the serving-tiny cells launched {launches}; their path runs no kernel")
+    for probe in plan:
+        if probe.category != "serving":
+            continue
+        rec = db.get(probe.key(env))
+        kv = parse_kv_notes(rec.notes) if rec else {}
+        if rec is None or not (kv.get("exec") == "eager" and float(kv["predicted_ns"]) > 0
+                               and 0 < float(kv["coverage"]) <= 1 and rec.latency_ns > 0
+                               and "clock=events" in rec.notes):
+            fail(f"serving: bad record for {probe.op}: {rec}")
+        check_cycles(rec)
+        serving_line("serving-tiny", rec)
+    return launches
+
+
+def run_serving_full(dev: torch.device, db_path: str) -> dict[str, int]:
+    """The full-width cells through ``Session.run`` on the DB at
+    ``db_path``, the counts set to 0 just before and read just after: both
+    cells measured; the prefill's record holds one K5 site and seven K7
+    sites, the decode step's none, and neither K5 nor K7 is unpriced;
+    only K5 and K7 launched, seven K7 a K5. Frees the model. Returns the
+    launches."""
+    import gc
+
+    from repro_torch.api import Plan, ServingCostProbe, Session
+    from repro_torch.configs.registry import get
+    from repro_torch.core.timing import Timer
+    from repro_torch.models.config import Runtime
+
+    spec = get("jamba-v0.1-52b").config
+    cfg = dataclasses.replace(spec, n_layers=len(spec.period))
+    # launch.serve's runtime under --kernels
+    rt = Runtime(remat=False, moe_groups=1, mamba_chunk=16, mlstm_chunk=16,
+                 attn_impl="pallas", use_pallas=True)
+    b, p = SERVING_FULL["batch"], SERVING_FULL["prompt"]
+    cells = (ServingCostProbe("prefill", b, p, cfg=cfg, rt=rt),
+             ServingCostProbe("decode", b, p, cfg=cfg, rt=rt, max_len=SERVING_FULL["max_len"]))
+    session = Session(db=db_path, device=dev, timer=Timer(warmup=2, reps=10, device=dev))
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    result = session.run(Plan(cells, name="serving-full"))
+    wall = time.perf_counter() - t0
+    launches = {k: n for k, n in read_counts().items() if n}
+    peak = torch.cuda.max_memory_allocated(dev)
+    for r in result.results:
+        if r.record is None:
+            fail(f"serving: {r.probe.op} failed: {r.failure}")
+        check_cycles(r.record)
+        serving_line("full width", r.record, r.probe.last_report, r.probe.last_record)
+    prefill, decode = cells
+    sites = dict(prefill.last_record.site_counts())
+    if sites != SERVING_SITES or decode.last_record.sites:
+        fail(f"serving: the prefill's record holds the sites {sites}, want {SERVING_SITES}; "
+             f"the decode step's {dict(decode.last_record.site_counts())}, want none")
+    for cell in cells:
+        kernels_unpriced = [op for op, _ in cell.last_report.unpriced_opcodes
+                            if op.startswith("kernel:")]
+        if kernels_unpriced:
+            fail(f"serving: {cell.op} left {kernels_unpriced} unpriced")
+    n5 = launches.get("flash_attention", 0)
+    if not n5 or set(launches) != set(SERVING_SITES) or launches["mamba_scan"] != 7 * n5:
+        fail(f"serving: the full-width cells launched {launches}, want K5 and seven K7 a K5, "
+             "nothing else")
+    print(f"serving: full width {cfg.name} at {cfg.n_layers} layers, batch {b}, prompt {p}, "
+          f"cache {SERVING_FULL['max_len']}: {wall:.2f} s for both cells (the model built "
+          f"once, each step recorded once and timed), launches {launches}, peak memory "
+          f"allocated {peak} B; card {card()}")
+    del result, cells, prefill, decode, session
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_serving(dev: torch.device, run_db, fused_db) -> dict[str, int]:
+    """Phase serving: the named plan, then the full-width cells, on a copy
+    of the run's DB with the fused plan's rows merged in. No Dynamo frame
+    may compile. Returns the full-width cells' launches (the named plan's
+    are none)."""
+    from repro_torch.core.latency_db import LatencyDB
+
+    frames = torch._dynamo.utils.counters["frames"]["total"]
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        db_path = str(Path(tmp) / "serving_db.json")
+        db = LatencyDB()
+        db.merge(run_db, fused_db)
+        db.save(db_path)
+        run_serving_tiny(dev, db_path)
+        launches = run_serving_full(dev, db_path)
+    compiled = torch._dynamo.utils.counters["frames"]["total"] - frames
+    print(f"serving: Dynamo frames compiled in this phase: {compiled}")
+    if compiled:
+        fail(f"serving: {compiled} frames went through torch.compile; the phase runs eagerly")
     return launches
 
 
@@ -2253,13 +2433,14 @@ def library_call(name: str, args: tuple, kw: dict):
 
 def time_fused(dev: torch.device, err: dict, jamba: dict, cases: dict,
                launches: dict, serve_launches: dict, archs_launches: dict,
-               archs_cases: dict) -> list[dict]:
+               archs_cases: dict, serving_launches: dict) -> list[dict]:
     """Phase 5, K4-K7: the kernel (CUDA events behind a lead), its plain
     version (wall time to completion), its bound and the library call, at
     the fused plan's larger unit workload (n = 6) and at the Jamba case
     (and at the second case of JAMBA_TIMED_MORE); K5 also at each case of
     phase archs, on the inputs of its first call there; its launches summed
-    over the fused run and phases serve and archs (also by phase)."""
+    over the fused run and phases serve, archs and serving (also by
+    phase)."""
     from repro_torch.core.timing import Timer
     from repro_torch.inkernel import (FUSED_KERNELS, FUSED_LENS, build_fused, fused_kwargs,
                                       unit_bytes)
@@ -2310,7 +2491,8 @@ def time_fused(dev: torch.device, err: dict, jamba: dict, cases: dict,
             _, margs, mkw = cases[mlabel]
             extra[key] = measure(name, margs, mkw, f"Jamba {mlabel}")
             extra[key].update(jamba[mlabel], shape=mlabel)
-        by_phase = {"fused": launches[name], "serve": serve_launches.get(name, 0)}
+        by_phase = {"fused": launches[name], "serve": serve_launches.get(name, 0),
+                    "serving": serving_launches.get(name, 0)}
         if name == "flash_attention":
             by_phase["archs"] = sum(archs_launches.values())
             extra["archs"] = {}
@@ -2964,6 +3146,7 @@ def main() -> int:
     from repro_torch.api.session import CompilePool, compile_workers_for, warm_tasks
     from repro_torch.audit import artifacts, chain_check, lint
     from repro_torch.core import chains, measure
+    from repro_torch.core.latency_db import LatencyDB
     from repro_torch.kernels import _build
     from repro_torch.kernels.common import resolve_device
 
@@ -3012,7 +3195,7 @@ def main() -> int:
         # plans' own work is left. Their host-side times (prefill and decode
         # ms) are taken beside the workers; the kernels' times are not
         t0 = time.perf_counter()
-        fused_launches = run_fused(dev)
+        fused_launches, fused_db = run_fused(dev)
         phase("fused", t0)
 
         t0 = time.perf_counter()
@@ -3060,6 +3243,14 @@ def main() -> int:
         print(f"compile pool: {len(pool.futures)} tasks, the O3 chains of quick and table2 "
               f"(none for O1 or the audit); the O1 chains took {pool.local_s:.2f} s in this "
               "process while the workers compiled")
+        run_db = LatencyDB(db_path)
+
+    # priced from the rows the plans recorded, so after them, and timed
+    # after the pool has stopped
+    t0 = time.perf_counter()
+    serving_launches = run_serving(dev, run_db, fused_db)
+    del run_db, fused_db
+    phase("serving", t0)
 
     # timed after the pool has stopped, so that no compile worker shares the
     # host with the plain versions' launches; the plans' launches of K1-K3
@@ -3070,7 +3261,7 @@ def main() -> int:
     rungs["inkernel.mem.67108864"].lap()
     kernels = time_kernels(dev, err, big=rungs["inkernel.mem.67108864"])
     kernels += time_fused(dev, fused_err, jamba, cases, fused_launches, serve_launches,
-                          archs_launches, archs_cases)
+                          archs_launches, archs_cases, serving_launches)
     clock_study(dev, rungs=rungs)
     loop_study(dev)
     del rungs, archs_cases

@@ -7,18 +7,21 @@
 * :class:`ResultSet` — per-probe outcomes plus report helpers.
 
 CLI: ``python -m repro_torch characterize --plan
-quick|table2|memory|inkernel|memory-inkernel|fused --db PATH [--table]
+quick|table2|memory|inkernel|memory-inkernel|fused|serving --db PATH [--table]
 [--device cuda|cpu]``.
 """
-from repro_torch.api.plan import PLAN_NAMES, PORTED_PLANS, QUICK_OPS, Plan, named_plan
+from repro_torch.api.plan import (PLAN_NAMES, PORTED_PLANS, QUICK_OPS, SERVING_CELLS, Plan,
+                                  named_plan)
 from repro_torch.api.probes import (ClockOverheadProbe, FusedKernelProbe,
                                     InstructionProbe, KernelChainProbe, KernelProbe,
-                                    MemoryChaseProbe, MemoryProbe, Probe, ProbeContext)
+                                    MemoryChaseProbe, MemoryProbe, Probe, ProbeContext,
+                                    ServingCostProbe, serving_tiny_config)
 from repro_torch.api.session import ProbeResult, ResultSet, Session
 
 __all__ = [
-    "PLAN_NAMES", "PORTED_PLANS", "QUICK_OPS", "Plan", "named_plan",
+    "PLAN_NAMES", "PORTED_PLANS", "QUICK_OPS", "SERVING_CELLS", "Plan", "named_plan",
     "ClockOverheadProbe", "FusedKernelProbe", "InstructionProbe", "KernelChainProbe",
     "KernelProbe", "MemoryChaseProbe", "MemoryProbe",
-    "Probe", "ProbeContext", "ProbeResult", "ResultSet", "Session",
+    "Probe", "ProbeContext", "ProbeResult", "ResultSet", "ServingCostProbe", "Session",
+    "serving_tiny_config",
 ]

@@ -15,6 +15,7 @@ Examples::
     python -m repro_torch characterize --plan memory-inkernel --db db.json --table
     python -m repro_torch characterize --plan memory-inkernel --db db.json --device cpu \
         --ops inkernel.mem.65536,mem.chase.ws65536 --table
+    python -m repro_torch characterize --plan serving --db db.json --table
 
 ``--plan memory`` is the pointer-chase ladder, 4 KiB to 32 MiB, through
 K3's global path; ``--plan memory-inkernel`` times the chase inside K3 (on
@@ -23,15 +24,25 @@ the card by the SM clock sandwich) at 64 KiB (from shared memory) to 64 MiB
 pairs ``inkernel.mem.<N>`` with ``mem.chase.ws<N>``; on a DB that holds the
 memory plan's rows those twins are cache hits.
 
-``python -m repro_torch audit --db DB [--lint [--lowering]] [--attribution
-PATH] [--strict]`` judges the code behind every record of a DB (PTX and SASS
-on the card, the dispatched ops at O0, AOTAutograd's graph at O1) and
-writes each verdict into the record's notes (``audit=...``);
+``python -m repro_torch audit --db DB [--lint [--lowering] [--zoo [--archs
+A,B]]] [--attribution PATH] [--strict]`` judges the code behind every
+record of a DB (PTX and SASS on the card, the dispatched ops at O0,
+AOTAutograd's graph at O1) and writes each verdict into the record's notes
+(``audit=...``); ``--lint`` runs the static lints (the pricing table's
+mapping, guard identity; ``--zoo`` also the op records of the ten
+architectures' smoke steps, on the CPU);
 ``characterize --audit`` attaches the verdicts as the records are measured.
 On the CPU the O0 and O1 rows get their verdicts and the O3 rows
 ``unaudited:no-device-code``. Exit codes: 0 clean (or advisory-only
 without ``--strict``), 1 integrity violations under ``--strict``, 2 usage
 or IO errors.
+
+``--plan serving`` measures the serving cells of the JAX package's tiny
+dense model (prefill and one decode step at batch 1 × 16 and 2 × 64
+tokens), each priced by the performance model from the DB's rows (the
+``QUICK_OPS`` at O3 and three chase rungs, which the plan runs first: on a
+DB that holds the quick and memory plans' rows they are cache hits), and
+``--table`` prints the predicted against measured table.
 
 ``--plan inkernel`` times each of the 58 in-kernel rows inside the kernel
 (on the card by the SM clock sandwich) beside its dispatch-level O3 twin;
@@ -69,7 +80,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="run a characterization plan into a LatencyDB")
     ch.add_argument("--plan", choices=PLAN_NAMES, default="quick",
                     help="named probe plan (default: quick; ported so far: "
-                         "quick, table2, memory, inkernel, memory-inkernel, fused)")
+                         "quick, table2, memory, inkernel, memory-inkernel, fused, "
+                         "serving)")
     ch.add_argument("--db", required=True,
                     help="LatencyDB JSON path (loaded if present; flushed "
                          "after every probe)")
@@ -83,8 +95,9 @@ def build_parser() -> argparse.ArgumentParser:
     ch.add_argument("--opt-levels", default=None,
                     help="comma-separated opt-level filter (e.g. O0,O3)")
     ch.add_argument("--table", action="store_true",
-                    help="print the Table II analog after the run, and the "
-                         "dispatch vs in-kernel pairing where the DB has both")
+                    help="print the Table II analog after the run, the "
+                         "dispatch vs in-kernel pairing where the DB has both, and "
+                         "the serving cells' predicted vs measured table")
     ch.add_argument("--recover", action="store_true",
                     help="salvage complete records from a truncated/corrupt "
                          "DB file instead of refusing to load it")
@@ -119,15 +132,20 @@ def build_parser() -> argparse.ArgumentParser:
                     help="re-derive verdicts even for records already "
                          "carrying an audit= note")
     au.add_argument("--lint", action="store_true",
-                    help="also run the static lints (guard identity)")
+                    help="also run the static lints (table mapping, guard identity)")
     au.add_argument("--lowering", action="store_true",
                     help="with --lint: also check that each registry row's "
                          "expected ops appear in a short chain (O1's graph; "
                          "O3's PTX where this process has it)")
-    for flag, what in (("--zoo", "the model zoo's opcode coverage"),
-                       ("--dataflow", "the fused kernels' dataflow certificates")):
-        au.add_argument(flag, action="store_true",
-                        help=f"with --lint: {what} (not ported yet)")
+    au.add_argument("--zoo", action="store_true",
+                    help="with --lint: also record each architecture's smoke "
+                         "prefill and decode step on the CPU and check that every "
+                         "op is priced, structural or allowlisted")
+    au.add_argument("--archs", default=None,
+                    help="comma-separated arch filter for --zoo (default: all ten)")
+    au.add_argument("--dataflow", action="store_true",
+                    help="with --lint: the fused kernels' dataflow certificates "
+                         "(not ported yet)")
     au.add_argument("--compile-cache", default=None, metavar="DIR",
                     help="a persistent compile cache (not ported yet)")
     au.add_argument("--attribution", default=None, metavar="PATH",
@@ -182,6 +200,10 @@ def cmd_characterize(args: argparse.Namespace) -> int:
         if compare.count("\n") > 1:  # header + separator + >=1 paired row
             print("\n== host vs in-kernel (paper's in-pipeline method) ==")
             print(compare)
+        serving = session.db.compare_markdown(prefix="serving.")
+        if serving.count("\n") > 1:
+            print("\n== serving predicted vs measured (LatencyDB x perfmodel) ==")
+            print(serving)
     return 1 if result.failed else 0
 
 
@@ -193,7 +215,7 @@ def cmd_audit(args: argparse.Namespace) -> int:
     """
     import os
 
-    for flag in ("zoo", "dataflow", "compile_cache"):
+    for flag in ("dataflow", "compile_cache"):
         if getattr(args, flag):
             print(f"error: --{flag.replace('_', '-')} is not ported yet (see ROADMAP.md)",
                   file=sys.stderr)
@@ -206,14 +228,16 @@ def cmd_audit(args: argparse.Namespace) -> int:
     if args.lint:
         from repro_torch.audit import run_lints
 
-        findings = run_lints(lowering=args.lowering)
+        archs = [a.strip() for a in args.archs.split(",")] if args.archs else None
+        findings = run_lints(lowering=args.lowering, zoo=args.zoo, archs=archs)
         if findings:
             print(f"{len(findings)} lint finding(s):")
             for f in findings:
                 print(f"  [{f.lint}] {f.subject}: {f.message}")
             failed += len(findings)
         else:
-            print("lints clean (guards" + ("+lowering)" if args.lowering else ")"))
+            print("lints clean (mapping+guards" + ("+lowering" if args.lowering else "")
+                  + ("+zoo" if args.zoo else "") + ")")
 
     did_db = False
     if args.db and os.path.exists(args.db):

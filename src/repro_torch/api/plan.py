@@ -3,10 +3,10 @@
 A :class:`Plan` is an ordered, duplicate-free tuple of probes; builders make
 the paper's sweeps, ``+`` composes plans and ``filter`` trims them. The
 algebra and the ``quick``, ``table2``, ``memory``, ``inkernel``,
-``memory-inkernel`` and ``fused`` plans are those of ``repro.api.plan``, so
-both packages give the same ordered logical keys; ``Plan.clock_overhead``
-defaults to the three levels, O0, O1 and O3, as there. The other named
-plans of the JAX package are not ported yet.
+``memory-inkernel``, ``fused`` and ``serving`` plans are those of
+``repro.api.plan``, so both packages give the same ordered logical keys;
+``Plan.clock_overhead`` defaults to the three levels, O0, O1 and O3, as
+there. The other named plans of the JAX package are not ported yet.
 """
 from __future__ import annotations
 
@@ -16,7 +16,8 @@ from typing import Iterable, Iterator, Sequence
 from repro_torch import inkernel
 from repro_torch.api.probes import (ClockOverheadProbe, FusedKernelProbe,
                                     InstructionProbe, KernelChainProbe, KernelProbe,
-                                    MemoryChaseProbe, MemoryProbe, Probe)
+                                    MemoryChaseProbe, MemoryProbe, Probe,
+                                    ServingCostProbe)
 from repro_torch.core import chains
 from repro_torch.core.chains import OpSpec
 from repro_torch.core.optlevels import OPT_LEVELS
@@ -31,7 +32,12 @@ QUICK_OPS = ("add", "mul", "mad", "div.s.regular", "div.s.irregular",
 PLAN_NAMES = ("quick", "table2", "memory", "inkernel", "memory-inkernel",
               "fused", "serving", "collectives", "serving-sharded", "slo",
               "full")
-PORTED_PLANS = ("quick", "table2", "memory", "inkernel", "memory-inkernel", "fused")
+PORTED_PLANS = ("quick", "table2", "memory", "inkernel", "memory-inkernel", "fused",
+                "serving")
+
+# Representative (batch, prompt_len) serving cells: a single-sequence short
+# prompt and a batched longer one, as in the JAX package.
+SERVING_CELLS = ((1, 16), (2, 64))
 
 # The JAX package's in-kernel chase ladder (``Plan.memory_inkernel``): its
 # 16 MiB VMEM budget >> 8, >> 6, >> 4, >> 2, x1, x2, x4, written out so that
@@ -146,6 +152,25 @@ class Plan:
                     name="fused")
 
     @staticmethod
+    def serving(cells: Sequence[tuple[int, int]] = SERVING_CELLS,
+                phases: Sequence[str] = ("prefill", "decode"),
+                cfg=None, rt=None, with_deps: bool = True) -> "Plan":
+        """One :class:`ServingCostProbe` per ``(batch, prompt_len)`` cell and
+        phase, preceded by default by the rows the estimator prices against:
+        the ``QUICK_OPS`` at O3 and the chase rungs of 8 KiB, 128 KiB and 2
+        MiB at the memory plan's default steps (a step-suffixed rung is
+        another experiment, which the estimator's ladder does not read).
+        Plan order is execution order, so the cells are priced from measured
+        rows."""
+        probes: list[Probe] = []
+        if with_deps:
+            probes += list(Plan.instructions(ops=QUICK_OPS, opt_levels=("O3",)))
+            probes += list(Plan.memory((1 << 13, 1 << 17, 1 << 21)))
+        probes += [ServingCostProbe(phase, b, p, cfg=cfg, rt=rt)
+                   for b, p in cells for phase in phases]
+        return Plan(_dedupe(tuple(probes)), name="serving")
+
+    @staticmethod
     def inkernel(registry: Sequence[OpSpec] | None = None,
                  ops: Iterable[str] | None = None,
                  categories: Iterable[str] | None = None,
@@ -210,6 +235,8 @@ def named_plan(name: str) -> Plan:
         plan = Plan.memory_inkernel()
     elif name == "fused":
         plan = Plan.fused()
+    elif name == "serving":
+        plan = Plan.serving()
     elif name in PLAN_NAMES:
         raise ValueError(f"plan {name!r} is not ported yet; ported plans: "
                          f"{PORTED_PLANS} (see ROADMAP.md)")

@@ -22,10 +22,14 @@ packages.
   working-set size (``inkernel.mem.<bytes>``; plan name
   ``memory-inkernel``): from shared memory up to the block's budget, from
   global memory above (paper Table IV / Fig. 6).
+* :class:`ServingCostProbe` — one serving cell, the Engine's prefill or
+  decode step priced from the DB's rows and timed (``serving.<phase>.<cell>``;
+  plan name ``serving``).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import weakref
 from typing import Any, Callable, Mapping
 
@@ -34,7 +38,7 @@ import torch
 from repro_torch import inkernel
 from repro_torch.core import measure, membench
 from repro_torch.core.chains import KERNEL_CHAIN_UNROLL, OpSpec, spec_by_name
-from repro_torch.core.latency_db import LatencyRecord
+from repro_torch.core.latency_db import LatencyDB, LatencyRecord
 from repro_torch.core.optlevels import compile_at_level, o1_option_string
 from repro_torch.core.timing import Measurement, Timer, sandwich_slope
 from repro_torch.kernels.alu_chain import alu_chain, alu_chain_timed
@@ -55,6 +59,8 @@ class ProbeContext:
     device: torch.device
     adaptive: bool = False               # adaptive fidelity on: effective rep
                                          # counts ride in record notes
+    db: LatencyDB | None = None          # the session's DB (what a serving
+                                         # cell is priced against)
 
 
 class Probe:
@@ -521,3 +527,129 @@ class MemoryChaseProbe(Probe):
             return self._record(ctx, m, notes=f"plain {notes}")
         return self._record(ctx, m, notes=f"cuda {notes}",
                             clock=f"sm_clock64@{ctx.clock_hz / 1e6:.0f}")
+
+
+def serving_tiny_config():
+    """The model the serving cells characterize by default (the JAX
+    package's): small enough for a CPU test, two layers deep."""
+    from repro_torch.models.config import ModelConfig, Runtime
+
+    cfg = ModelConfig(name="serving-tiny", family="dense", n_layers=2,
+                      d_model=32, n_heads=4, n_kv_heads=2, d_ff=64,
+                      vocab_size=128, param_dtype="float32",
+                      compute_dtype="float32")
+    rt = Runtime(remat=False, xent_chunk=16, moe_groups=1)
+    return cfg, rt
+
+
+# the models the serving probes built (weights from seed 0), by (config,
+# device), held only while a prepared cell uses one: the cells of one run
+# share one build
+_SERVED_MODELS: "weakref.WeakValueDictionary" = weakref.WeakValueDictionary()
+
+
+def _served_model(cfg, device: torch.device):
+    from repro_torch.models import transformer
+
+    key = (cfg, str(device))
+    model = _SERVED_MODELS.get(key)
+    if model is None:
+        model = transformer.init_lm(cfg, seed=0, device=device)
+        _SERVED_MODELS[key] = model
+    return model
+
+
+class ServingCostProbe(Probe):
+    """Price and measure one serving cell: the Engine's prefill or decode
+    step at ``(batch, prompt_len)``, where the measured rows of the DB meet
+    the model side, the paper's stated purpose.
+
+    ``prepare`` builds the model from seed 0 on the session's device (the
+    cells of one run share one build), takes the step from
+    :meth:`Engine.lower_prefill` / :meth:`Engine.lower_decode` and records
+    what it issues, once and untimed (:func:`hlo_analysis.record_ops`).
+    ``run_prepared`` merges the DB from its path, prices the record with the
+    :class:`~repro_torch.core.perfmodel.RecordLatencyEstimator` against the
+    rows of the session's environment only, then times the same eager step
+    with the session's timer. The record's ``latency_ns`` is the
+    **measured** time; the prediction and its digest ride in the notes
+    (``servingpoint_from_record`` reads them back), with ``exec=eager``: the
+    JAX package times a compiled executable, the port the eager step it
+    priced. On the card the events are recorded around the step on an idle
+    stream (``Timer.time_callable(lead=False)``, notes ``lead=none``): the
+    step's time as served, its host gaps included. The last record and report stay on the probe
+    (``last_record``, ``last_report``).
+
+    Op names ``serving.prefill.b<B>p<L>`` / ``serving.decode.b<B>p<L>``,
+    ``opt_level`` ``"O3"``; a non-default cache size suffixes ``.c<len>``
+    and a non-default model ``.<cfg.name>``, as in the JAX package.
+    """
+
+    category = "serving"
+
+    def __init__(self, phase: str, batch: int, prompt_len: int,
+                 cfg=None, rt=None, max_len: int | None = None, reps: int = 5):
+        if phase not in ("prefill", "decode"):
+            raise ValueError(f"phase must be prefill|decode, got {phase!r}")
+        default_cfg, default_rt = serving_tiny_config()
+        self.phase = phase
+        self.batch = int(batch)
+        self.prompt_len = int(prompt_len)
+        self.cfg = cfg if cfg is not None else default_cfg
+        self.rt = rt if rt is not None else default_rt
+        self.max_len = max_len
+        self.reps = reps
+        self.opt_level = "O3"
+        self.dtype = self.cfg.compute_dtype
+        self.base_op = f"serving.{phase}.b{self.batch}p{self.prompt_len}"
+        self.op = self.base_op
+        if max_len is not None:
+            self.op += f".c{int(max_len)}"
+        if self.cfg.name != default_cfg.name:
+            self.op += f".{self.cfg.name}"
+        self.last_record = None
+        self.last_report = None
+
+    def match_names(self) -> frozenset[str]:
+        # the full cell name, the phase family (``--ops serving.decode``)
+        # and the whole family ``serving``
+        return frozenset((self.op, self.base_op, f"serving.{self.phase}", "serving"))
+
+    def prepare(self, ctx: ProbeContext):
+        from repro_torch.core import hlo_analysis
+        from repro_torch.serving.engine import Engine
+
+        eng = Engine(_served_model(self.cfg, ctx.device), self.rt)
+        if self.phase == "prefill":
+            step, args = eng.lower_prefill(self.batch, self.prompt_len)
+            cache_len = 0                     # prefill builds, never reads, a cache
+        else:
+            cache_len = self.max_len if self.max_len is not None else eng.max_len
+            step, args = eng.lower_decode(self.batch, self.prompt_len, cache_len)
+        self.last_record = hlo_analysis.record_ops(step, *args)
+        return (step, args, self.last_record, cache_len)
+
+    def run_prepared(self, ctx: ProbeContext, prepared) -> LatencyRecord:
+        from repro_torch.core.perfmodel import RecordLatencyEstimator
+
+        step, args, record, cache_len = prepared
+        if ctx.db is not None and ctx.db.path and os.path.exists(ctx.db.path):
+            # rows another run flushed to the DB's path since it was loaded
+            ctx.db.merge(LatencyDB(ctx.db.path))
+        est = RecordLatencyEstimator(ctx.db if ctx.db is not None else LatencyDB(),
+                                     opt_level=self.opt_level, filters=dict(ctx.env))
+        report = self.last_report = est.estimate(record)
+        # a served step launches more kernels than the card's queue holds
+        # behind a lead, and its decode copies from host memory: timed on an
+        # idle stream, as served (``lead=none``)
+        m = ctx.timer.time_callable(step, *args, reps=self.reps, lead=False)
+        notes = (f"phase={self.phase} batch={self.batch} "
+                 f"prompt={self.prompt_len} cache={cache_len} "
+                 f"model={self.cfg.name} "
+                 f"predicted_ns={report.total_ns:.3f} "
+                 f"compute_ns={report.compute_ns:.3f} "
+                 f"memory_ns={report.memory_ns:.3f} "
+                 f"coverage={report.coverage:.4f} "
+                 f"bound={report.bound} exec=eager"
+                 + (" lead=none" if ctx.device.type == "cuda" else ""))
+        return self._record(ctx, m, notes=notes)

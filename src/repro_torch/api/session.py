@@ -279,7 +279,7 @@ class Session:
                                 lv, use_db=not force),
                             kernel_baseline_ns=self.kernel_baseline_ns,
                             device=self.device,
-                            adaptive=self.adaptive is not None)
+                            adaptive=self.adaptive is not None, db=self.db)
 
     # ------------------------------------------------------------ execution
     def run(self, plan: Plan, force: bool | None = None) -> ResultSet:

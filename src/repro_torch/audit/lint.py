@@ -1,5 +1,8 @@
 """Static lints over the port's opcode plumbing.
 
+* **table mapping** — every ``ATEN_TO_TABLE`` value must name a registry
+  row (else the estimator prices an op against a row no probe measures),
+  and no op may be both priced and structural.
 * **guard identity** — every registry row's declared ``guard`` count must
   match the audit's declared guard opcodes, and those opcodes must be in
   the row's own per-step multiset (else ``net_latency_ns`` subtracts
@@ -11,20 +14,88 @@
   alike); at O3 the PTX opcodes of a chain this process compiled or loaded
   (on the card: the measurement's own, so nothing is compiled for the
   lint), and where it has none the row is skipped, not failed.
+* **zoo coverage** — every op in the op records of the model zoo must be
+  priced (``ATEN_TO_TABLE``), structural (``STRUCTURAL_OPS``), on the
+  explicit :data:`ZOO_ALLOWLIST` or a documented library call
+  (:data:`KNOWN_LIBRARY_CALLS`), and every kernel site must be a fused
+  kernel the ``fused`` plan measures (else a new model quietly fills the
+  estimator's default-cost bucket). The JAX lint lowers each
+  architecture's train step; the port has no training yet (ROADMAP item
+  14b), so it records each smoke config's prefill and first decode step
+  on the CPU, with the kernels on (``attn_impl="pallas"``,
+  ``use_pallas``) so that their sites appear, and otherwise the JAX
+  recipe: batch 2, sequence 32, [3, B, S] positions under M-RoPE, frames
+  of S / 4 for the encoder-decoder.
 
-``lint_table_mapping`` waits for the port's pricing table
-(``core/hlo_analysis.py``'s counterpart), ``lint_zoo`` for the model zoo
-and ``lint_dataflow`` for the fused half of ``audit/dataflow.py``:
-:func:`run_lints` raises for ``zoo`` and ``dataflow``.
+``lint_dataflow`` waits for the fused half of ``audit/dataflow.py``:
+:func:`run_lints` raises for ``dataflow``.
 """
 from __future__ import annotations
 
 import dataclasses
 from collections import Counter
+from typing import Iterable
+
+import torch
 
 
 # the length of the short chain the registry-lowering lint reads at O1
 LINT_LEN = 4
+
+# Ops the zoo's records may hold that are *deliberately* not in
+# ATEN_TO_TABLE. Every entry needs a reason: this list is the documented
+# boundary of the estimator's default-cost bucket, kept by the zoo lint.
+ZOO_ALLOWLIST: dict[str, str] = {
+    # special-cased by the estimator's matmul term, never table-priced
+    "mm": "priced by the estimator's dedicated matmul/FLOP term",
+    "bmm": "priced by the estimator's dedicated matmul/FLOP term",
+    "addmm": "priced by the estimator's dedicated matmul/FLOP term",
+    "baddbmm": "priced by the estimator's dedicated matmul/FLOP term",
+    # data-dependent reshuffles: their cost is memory traffic (the record's
+    # bytes), and no dispatch-level chain can serialize them into a row
+    "embedding": "a gather of table rows; memory-bound, priced by the bytes",
+    "index": "memory-bound gather; priced by the bytes",
+    "index_select": "memory-bound gather; priced by the bytes",
+    "gather": "memory-bound data movement; priced by the bytes",
+    "scatter": "memory-bound data movement; priced by the bytes",
+    "scatter_add": "memory-bound data movement; priced by the bytes",
+    "index_put": "memory-bound data movement; priced by the bytes",
+    # lane-local ALU ops with no table row in the paper's ISA set
+    "where": "predication; folded into the comparison it consumes",
+    "eq": "sets predicates; no standalone table row",
+    "ne": "sets predicates; no standalone table row",
+    "lt": "sets predicates; no standalone table row",
+    "le": "sets predicates; no standalone table row",
+    "gt": "sets predicates; no standalone table row",
+    "ge": "sets predicates; no standalone table row",
+    "_to_copy": "dtype plumbing (XLA's convert); audited as linear, not priced",
+    "clamp": "min+max macro of two mapped rows",
+    "floor": "rounding mode of a mapped convert-class op",
+    "ceil": "rounding mode of a mapped convert-class op",
+    "round": "rounding mode of a mapped convert-class op",
+    "sign": "compare/select macro",
+    "erf": "libm composite; no table row in the paper",
+    "atan2": "libm composite; no table row in the paper",
+    # reductions and scans: one eager op each, a reduce tree inside
+    "sum": "reduction (XLA's reduce); no table row times a reduce tree",
+    "amax": "reduction (XLA's reduce); no table row times a reduce tree",
+    "amin": "reduction (XLA's reduce); no table row times a reduce tree",
+    "max": "reduction (XLA's reduce); no table row times a reduce tree",
+    "min": "reduction (XLA's reduce); no table row times a reduce tree",
+    "argmax": "reduction (XLA's reduce); no table row times a reduce tree",
+    "any": "reduction (XLA's reduce); no table row times a reduce tree",
+    "cumsum": "a scan (XLA's reduce-window); no table row times it",
+    "var": "reduction (XLA's reduce); no table row times a reduce tree",
+}
+
+# Ops that run library code with no dependence chain to measure: the
+# counterpart of the JAX lint's custom-call library targets. The lint
+# accepts them (reason required); the estimator still reports each as
+# unpriced, so they keep counting against coverage.
+KNOWN_LIBRARY_CALLS: dict[str, str] = {
+    "sort": "the MoE router's top-k (the JAX package's TopK library call): a "
+            "radix sort of library code with no serializable dependence chain",
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +106,27 @@ class LintFinding:
 
     def __str__(self) -> str:  # pragma: no cover - display helper
         return f"[{self.lint}] {self.subject}: {self.message}"
+
+
+def lint_table_mapping() -> list[LintFinding]:
+    """Every ``ATEN_TO_TABLE`` value must name a measurable registry row."""
+    from repro_torch.core.chains import default_registry
+    from repro_torch.core.hlo_analysis import ATEN_TO_TABLE, STRUCTURAL_OPS
+
+    spec_names = {s.name for s in default_registry()}
+    findings = []
+    for op, table_op in sorted(ATEN_TO_TABLE.items()):
+        if table_op not in spec_names:
+            findings.append(LintFinding(
+                "table-mapping", op,
+                f"maps to '{table_op}' which is not a registry spec — the "
+                f"estimator would price it with a row no probe measures"))
+        if op in STRUCTURAL_OPS:
+            findings.append(LintFinding(
+                "table-mapping", op,
+                "is both priced (ATEN_TO_TABLE) and structural "
+                "(STRUCTURAL_OPS); the estimator would double-classify it"))
+    return findings
 
 
 def lint_guard_identity() -> list[LintFinding]:
@@ -118,17 +210,95 @@ def lint_registry_lowering(opt_levels: tuple[str, ...] = ("O1", "O3"),
     return findings
 
 
+ZOO_BATCH, ZOO_SEQ = 2, 32
+
+
+def zoo_records(arch: str):
+    """The op records of one architecture's smoke config on the CPU: its
+    prefill of ``ZOO_BATCH`` x ``ZOO_SEQ`` tokens and the first decode step
+    after it, the kernels on (their plain versions run on the CPU), weights
+    and inputs from seed 0."""
+    from repro_torch.configs.registry import get
+    from repro_torch.core.hlo_analysis import record_ops
+    from repro_torch.models import encdec, transformer
+    from repro_torch.models.config import Runtime
+
+    rt = Runtime(moe_groups=2, mamba_chunk=8, mlstm_chunk=8, xent_chunk=16, remat=False,
+                 attn_impl="pallas", use_pallas=True)
+    b, s = ZOO_BATCH, ZOO_SEQ
+    cfg = get(arch).smoke
+    g = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=g)
+    nxt = tokens[:, -1:]
+    if cfg.n_encoder_layers:
+        frames = torch.randn(b, s // 4, cfg.d_model, generator=g)
+        model = encdec.init_encdec(cfg, seed=0, device="cpu")
+        prefill = record_ops(encdec.prefill, model, rt, frames, tokens)
+        cache = encdec.pad_cache(encdec.prefill(model, rt, frames, tokens)[1], s + 1)
+        decode = record_ops(encdec.decode_step, model, cache, nxt, s, rt)
+        return prefill, decode
+    model = transformer.init_lm(cfg, seed=0, device="cpu")
+    pos = dec_pos = None
+    if cfg.mrope_sections:
+        pos = torch.arange(s).expand(3, b, s)
+        dec_pos = torch.full((3, b, 1), s)
+    prefill = record_ops(transformer.prefill, model, rt, tokens=tokens, positions=pos)
+    cache = transformer.pad_cache(
+        transformer.prefill(model, rt, tokens=tokens, positions=pos)[1], cfg, s + 1)
+    decode = record_ops(transformer.decode_step, model, cache, nxt, s, rt, positions=dec_pos)
+    return prefill, decode
+
+
+def lint_zoo(archs: Iterable[str] | None = None) -> list[LintFinding]:
+    """Every op in the model zoo's op records must be priced, structural,
+    allowlisted or a documented library call, and every kernel site a
+    fused kernel with a measured row. Records each architecture's smoke
+    prefill and decode step on the CPU (seconds an architecture); times
+    nothing."""
+    from repro_torch.configs.registry import all_arch_ids
+    from repro_torch.core.hlo_analysis import (ATEN_TO_TABLE, KERNEL_SITES,
+                                               STRUCTURAL_OPS)
+    from repro_torch.inkernel import FUSED_KERNELS
+
+    findings = []
+    for arch in (archs if archs is not None else all_arch_ids()):
+        try:
+            records = zoo_records(arch)
+        except Exception as e:  # noqa: BLE001 - an arch that does not run is a finding
+            findings.append(LintFinding("zoo-coverage", arch,
+                                        f"prefill or decode step does not run: {e}"))
+            continue
+        ops = {op for rec in records for (op, _e) in rec.histogram}
+        for op in sorted(ops):
+            if (op not in ATEN_TO_TABLE and op not in STRUCTURAL_OPS
+                    and op not in ZOO_ALLOWLIST and op not in KNOWN_LIBRARY_CALLS):
+                findings.append(LintFinding(
+                    "zoo-coverage", arch,
+                    f"op '{op}' is neither priced (ATEN_TO_TABLE), structural, "
+                    f"allowlisted nor a known library call"))
+        for name in sorted({site.name for rec in records for site in rec.sites}):
+            if KERNEL_SITES.get(name) not in FUSED_KERNELS:
+                findings.append(LintFinding(
+                    "zoo-coverage", arch,
+                    f"kernel site '{name}' resolves to no fused-kernel row "
+                    f"(KERNEL_SITES) — the estimator would default-price an opaque kernel"))
+    return findings
+
+
 def run_lints(lowering: bool = False, zoo: bool = False,
+              archs: Iterable[str] | None = None,
               dataflow: bool = False) -> list[LintFinding]:
-    """All ported static lints. The trace-only set always runs; ``lowering``
-    opts into the registry-lowering lint. ``zoo`` and ``dataflow`` are not
-    ported yet and raise."""
-    if zoo or dataflow:
+    """All ported static lints. The table mapping and guard identity always
+    run; ``lowering`` and ``zoo`` opt into the slower (device-free but for
+    the O3 PTX the process holds) sets. ``dataflow`` is not ported yet and
+    raises."""
+    if dataflow:
         raise NotImplementedError(
-            f"lint {'zoo' if zoo else 'dataflow'} is not ported yet (it waits for "
-            f"{'the model zoo' if zoo else 'the fused half of audit/dataflow.py'}; "
-            "see ROADMAP.md)")
-    findings = lint_guard_identity()
+            "lint dataflow is not ported yet (it waits for the fused half of "
+            "audit/dataflow.py; see ROADMAP.md)")
+    findings = lint_table_mapping() + lint_guard_identity()
     if lowering:
         findings += lint_registry_lowering()
+    if zoo:
+        findings += lint_zoo(archs)
     return findings

@@ -475,6 +475,29 @@ class LatencyDB:
             return f"mem.chase.ws{base[4:]}"
         return base
 
+    def _serving_markdown(self, opt_level: str) -> str:
+        """Predicted against measured over the ``serving.*`` rows. Each row
+        pairs with itself: the ``ServingCostProbe`` keeps the estimator's
+        prediction and coverage in the notes beside the measured time. Rows
+        sort by environment, then cell, numerically (b2p64 after b2p16)."""
+        rows = []
+        recs = sorted(
+            (r for r in self._records.values()
+             if r.op.startswith("serving.") and r.opt_level == opt_level),
+            key=lambda r: (r.device_kind, r.backend, r.jax_version, self._natural(r.op)))
+        for r in recs:
+            kv = parse_kv_notes(r.notes)
+            pred = float(kv.get("predicted_ns", 0.0))
+            meas = r.latency_ns
+            ratio = f"{pred / meas:.3f}" if meas > 0 else "—"
+            rows.append([r.op, kv.get("phase", "—"), kv.get("batch", "—"),
+                         kv.get("prompt", "—"), kv.get("model", "—"),
+                         f"{pred:.0f}", f"{meas:.0f}", ratio, kv.get("coverage", "—"),
+                         kv.get("bound", "—")])
+        return markdown_table(
+            ["cell", "phase", "batch", "prompt", "model", "predicted (ns)",
+             "measured (ns)", "pred/meas", "coverage", "bound"], rows)
+
     def compare_markdown(self, prefix: str = "inkernel.",
                          opt_level: str = "O3") -> str:
         """Dispatch vs in-kernel: rows measured both ways, side by side.
@@ -486,13 +509,17 @@ class LatencyDB:
         (``inkernel.add.l4-32``) are another experiment and are not paired.
         The ratio column is the in-pipeline share of the dispatch-level
         number: the launch and dispatch blur that the paper's in-pipeline
-        sampling removes. The JAX package's ``serving.`` and ``coll.``
-        renderings are not ported yet (their plans are not) and raise.
+        sampling removes. ``prefix="serving."`` renders the serving cells'
+        predicted against measured table instead (:meth:`_serving_markdown`);
+        the JAX package's ``coll.`` rendering is not ported yet (its plan is
+        not) and raises.
         """
-        if prefix in ("serving.", "coll."):
+        if prefix == "serving.":
+            return self._serving_markdown(opt_level)
+        if prefix == "coll.":
             raise NotImplementedError(
                 f"compare_markdown(prefix={prefix!r}): the {prefix[:-1]} rows' table is not "
-                "ported yet; their plans come with a later slice (ROADMAP.md)")
+                "ported yet; their plan comes with a later slice (ROADMAP.md)")
         plain: dict[tuple, LatencyRecord] = {}
         inker: dict[tuple, LatencyRecord] = {}
         for r in self._records.values():

@@ -21,7 +21,11 @@ microsecond) hides under tens of microseconds of host dispatch and its
 jitter. So every time here is device time: at O0 the card's time for the
 eager kernels one after another, at O3 the fused kernel's. On the CPU the
 clock is ``time.perf_counter_ns`` around the region (``clock="host"``).
-Every probe records which one in its notes.
+Every probe records which one in its notes. A region no lead can cover (a
+served step: more launches than the card's queue holds, or a copy from
+host memory that waits for the stream) is timed with ``lead=False``: the
+events around it on an idle stream, so its time is the step's as served,
+the host's gaps between launches included.
 
 On the card a third clock reaches inside a kernel: the paper's own
 sandwich, the SM's ``%clock64`` read by each thread right before and right
@@ -194,8 +198,21 @@ class Timer:
         return contextlib.nullcontext()
 
     # ------------------------------------------------------------------ raw
-    def _sampler(self) -> Callable[..., float]:
-        """One timed execution -> ns, on this timer's clock."""
+    def _sampler(self, lead: bool = True) -> Callable[..., float]:
+        """One timed execution -> ns, on this timer's clock (on the card
+        behind a lead, or with ``lead=False`` on an idle stream)."""
+        if self.clock == "events" and not lead:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+
+            def sample(fn: Callable[..., Any], *args: Any) -> float:
+                torch.cuda.current_stream().synchronize()
+                start.record()
+                fn(*args)
+                end.record()
+                end.synchronize()
+                return start.elapsed_time(end) * 1e6  # ms -> ns
+            return sample
         if self.clock == "events":
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -234,8 +251,11 @@ class Timer:
             return self._sampler()(fn, *args)
 
     def time_callable(self, fn: Callable[..., Any], *args: Any,
-                      warmup: int | None = None, reps: int | None = None) -> Measurement:
-        """Median time of ``fn(*args)`` with device completion.
+                      warmup: int | None = None, reps: int | None = None,
+                      lead: bool = True) -> Measurement:
+        """Median time of ``fn(*args)`` with device completion (on the card
+        behind a lead, or with ``lead=False`` around the region on an idle
+        stream; the module docstring says when).
 
         With an :class:`AdaptiveFidelity` policy set, ``reps`` is the nominal
         budget: the loop stops once the running MAD/median converges (banking
@@ -251,7 +271,7 @@ class Timer:
             max_total = reps + min(
                 int(reps * (adaptive.max_extra_factor - 1.0)), self._rep_bank)
         with self.device_ctx():
-            sample = self._sampler()
+            sample = self._sampler(lead)
             for _ in range(warmup):
                 block(fn(*args))
             samples: list[float] = []

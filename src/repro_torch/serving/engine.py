@@ -21,9 +21,11 @@ so a short row's later tokens sit at the padded batch's positions, and its
 KV slots between ``len(prompt)`` and the batch's ``max_len`` hold pad-token
 entries. The slot pool does not share this.
 
-``lower_prefill`` and ``lower_decode`` (the JAX package lowers HLO for its
-serving cost probe) are not ported yet: they come with the performance
-model, which decides what the port prices.
+:meth:`Engine.lower_prefill` and :meth:`Engine.lower_decode` hand the
+serving cost probe one step at a cell and its inputs. The JAX package
+returns a jit-lowered computation; the port, which serves eagerly, returns
+the eager step itself, which the probe records
+(``core.hlo_analysis.record_ops``), prices and times.
 """
 from __future__ import annotations
 
@@ -106,6 +108,35 @@ class Engine:
         return GenerateResult(tokens=out, prompt_lens=lens.astype(np.int32), steps=steps,
                               finished_steps=finished if eos_id is not None else None,
                               prefill_s=t1 - t0, decode_s=t2 - t1)
+
+    # ---------------------------------------------------- characterization
+    def lower_prefill(self, batch: int, prompt_len: int):
+        """The prefill step at one ``(batch, prompt_len)`` cell: returns
+        ``(step, args)``, the callable and the tensors on the engine's device
+        to run it with (tokens ``arange(B·L) % vocab``, each row's last
+        position ``L - 1``)."""
+        toks = (torch.arange(batch * prompt_len, device=self.device)
+                % max(self.cfg.vocab_size, 1)).reshape(batch, prompt_len)
+        last = torch.full((batch,), prompt_len - 1, dtype=torch.long, device=self.device)
+        return self._prefill, (toks, last)
+
+    def lower_decode(self, batch: int, prompt_len: int, max_len: int | None = None):
+        """One decode step at a cell: a cache of ``max_len`` positions (the
+        engine's own ``max_len`` by default, the cache the serving loop
+        decodes against), written at position ``prompt_len`` (the first
+        generated token's step). Returns ``(step, args)``; ``step(*args)``
+        can run again and again on the same cache, which it consumes
+        nothing of: it writes the same K and V at the same position and
+        hands the Mamba states back as new tensors (the JAX package's
+        non-donating jit)."""
+        max_len = max_len if max_len is not None else self.max_len
+        cache = transformer.init_cache(self.model, batch, max_len, self.cfg.cdtype)
+        toks = torch.zeros((batch, 1), dtype=torch.long, device=self.device)
+
+        def step(cache, tokens):
+            return self._decode(cache, tokens, prompt_len)
+
+        return step, (cache, toks)
 
     # ------------------------------------------------------- slot-level API
     def slots(self, n_slots: int, *, max_len: int | None = None) -> "SlotPool":

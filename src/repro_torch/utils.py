@@ -111,6 +111,22 @@ def load_json(path: str) -> Any:
         return json.load(f)
 
 
+def human_bytes(n: float) -> str:
+    for unit in ("B", "KiB", "MiB", "GiB", "TiB", "PiB"):
+        if abs(n) < 1024.0:
+            return f"{n:.2f}{unit}"
+        n /= 1024.0
+    return f"{n:.2f}EiB"
+
+
+def human_flops(n: float) -> str:
+    for unit in ("", "K", "M", "G", "T", "P", "E"):
+        if abs(n) < 1000.0:
+            return f"{n:.2f}{unit}FLOP"
+        n /= 1000.0
+    return f"{n:.2f}ZFLOP"
+
+
 def timestamp() -> str:
     return time.strftime("%Y-%m-%dT%H:%M:%S")
 

@@ -425,9 +425,8 @@ def test_lint_catches_guard_mismatch(monkeypatch):
 
 
 def test_lints_not_ported_raise():
-    for kw in ({"zoo": True}, {"dataflow": True}):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            run_lints(**kw)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        run_lints(dataflow=True)
 
 
 # -------------------------------------------------------- CLI and session
@@ -450,7 +449,7 @@ def test_cli_lint_only_without_db(tmp_path):
     assert cli_main(["audit", "--db", str(tmp_path / "nope.json"), "--lint"]) == 0
 
 
-@pytest.mark.parametrize("flag", ["--zoo", "--dataflow", "--compile-cache=x"])
+@pytest.mark.parametrize("flag", ["--dataflow", "--compile-cache=x"])
 def test_cli_not_ported_flags_exit_2(flag, capsys):
     assert cli_main(["audit", "--lint", *flag.split("=", 1)[:1],
                      *flag.split("=", 1)[1:]]) == 2
@@ -500,7 +499,7 @@ def test_session_audit_attaches_notes_and_cli_audits_a_cpu_db(tmp_path, short, c
     capsys.readouterr()
     assert cli_main(["audit", "--db", db_path, "--lint", "--lowering", "--strict"]) == 0
     out = capsys.readouterr().out
-    assert "lints clean (guards+lowering)" in out
+    assert "lints clean (mapping+guards+lowering)" in out
     assert "audited 10 record(s): ok=9, unaudited=1" in out
 
 

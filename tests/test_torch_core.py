@@ -309,7 +309,7 @@ def test_plan_algebra_matches_jax():
     assert len(quick.filter(opt_levels=["O0"])) == 16
 
 
-@pytest.mark.parametrize("name", ["serving", "collectives", "full"])
+@pytest.mark.parametrize("name", ["collectives", "full"])
 def test_unported_plans_raise(name):
     with pytest.raises(ValueError, match="not ported yet"):
         torch_plan.named_plan(name)

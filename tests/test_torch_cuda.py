@@ -837,3 +837,39 @@ def test_xlstm_serves_on_the_card(dev, capsys):
     eng = serve.main(["--arch", "xlstm-350m", "--requests", "3", "--max-new", "4"])
     assert eng.device == dev and launches_since(before) == {}
     assert "xlstm-smoke (8 layers" in capsys.readouterr().out
+
+
+def test_serving_plan_measures_its_four_cells_on_the_card(dev, tmp_path, monkeypatch, capsys):
+    """``characterize --plan serving`` on the card: its deps first (the
+    QUICK_OPS' O3 chains cut to (8, 32) here, so a short chain may end as a
+    NoisySlopeError; the three chase rungs), then the four serving-tiny
+    cells, each measured on events with ``exec=eager``, a positive
+    prediction priced from the deps' rows, a coverage in (0, 1], and no
+    fused kernel launched; the serving table printed."""
+    from repro_torch.api.plan import named_plan
+    from repro_torch.core.latency_db import LatencyDB, current_environment
+    from repro_torch.kernels.ops import launch_counts, launches_since
+    from repro_torch.utils import parse_kv_notes
+
+    monkeypatch.setitem(measure._CHAIN_LENS, "O3", (8, 32))
+    db_path = tmp_path / "serving.json"
+    before = launch_counts()
+    rc = cli_main(["characterize", "--plan", "serving", "--db", str(db_path), "--table"])
+    out = capsys.readouterr().out
+    db = LatencyDB(str(db_path))
+    assert all(f.error_type == "NoisySlopeError" and not f.op.startswith("serving.")
+               for f in db.failures()), db.failures()
+    assert rc == (1 if db.failures() else 0)
+    # the deps launch K2 (popc, clz) and K3 (the rungs); the cells no fused kernel
+    assert not set(launches_since(before)) & {"rmsnorm", "flash_attention", "flash_decode",
+                                              "mamba_scan"}
+    env = current_environment(dev)
+    cells = [p for p in named_plan("serving") if p.category == "serving"]
+    assert len(cells) == 4
+    for probe in cells:
+        rec = db.get(probe.key(env))
+        kv = parse_kv_notes(rec.notes)
+        assert kv["exec"] == "eager" and kv["lead"] == "none" and "clock=events" in rec.notes
+        assert float(kv["predicted_ns"]) > 0 and 0 < float(kv["coverage"]) <= 1
+        assert rec.latency_ns > 0
+    assert "== serving predicted vs measured" in out

@@ -128,7 +128,7 @@ def test_no_card_means_an_error_not_the_cpu(tmp_path, capsys):
 
 
 def test_unported_plan_is_an_error(tmp_path, capsys):
-    rc = cli.main(["characterize", "--plan", "serving", "--device", "cpu",
+    rc = cli.main(["characterize", "--plan", "collectives", "--device", "cpu",
                    "--db", str(tmp_path / "db.json")])
     assert rc == 2 and "not ported yet" in capsys.readouterr().err
 
