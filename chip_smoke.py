@@ -16,9 +16,9 @@ Phases, each of which must pass, in this order but for 10-12 (fused,
 serve and archs), which need no compiled chain and run right after phase
 2, while the compile workers build the plans' chains (their host-side
 times, prefill and decode ms, are taken beside those compiles; the card's
-are its own). Phase 13, serving, runs after the pool has stopped, on the
-rows the plans recorded; phase 14 times the kernels after it, and K1-K3's
-launches on the plans are counted in after that:
+are its own). Phases 13 and 14, serving and slo, run after the pool has
+stopped, on the rows the plans recorded; phase 15 times the kernels after
+them, and K1-K3's launches on the plans are counted in after that:
 
 1. build the CUDA kernels from ``src/repro_torch/csrc`` (into ``build/``),
    one nvcc per source, all at once, print ptxas's register and spill
@@ -202,7 +202,28 @@ launches on the plans are counted in after that:
    the decode step's none; only K5 and K7 launched, seven K7 a K5; no
    Dynamo frame. It prints each cell's predicted and measured ns, their
    ratio, coverage, bound, unpriced ops and the record's size;
-14. time each kernel, its plain version, its bound (the larger of bytes
+14. ``slo``: ``serve-slo`` through the CLI on a copy of the run's DB with
+   the fused plan's rows merged in: serving-tiny at 20, 50 and 100 req/s,
+   12 requests of a seeded Poisson trace each through a pool of 4 slots,
+   its 18 deps cache hits, each point measured (the slot pool on the
+   host's wall clock, ``exec=eager clock=wall``) and predicted (the
+   scheduler over the steps' records priced from the DB), both sides'
+   p50 and p99 TTFT and p50 TPOT positive, a coverage in (0, 1], no
+   kernel launched; a second run all cache hits. Then Jamba-v0.1's pool
+   at full width (one period, phase serve's model, runtime and seed)
+   through ``Session.run`` over ``SloProbe``s at 1 and 16 req/s: 12
+   requests of 256-2048 prompt tokens and 8-32 new tokens, 4 slots on a
+   cache of 2080, eos off. Every request must produce its whole budget on
+   both sides; only K5 and K7 may launch, seven K7 a K5, K5 once an
+   admission (each point's records of its prompt lengths, its warm-ups and
+   its 12 measured admissions); every K5 and K7 call of the measured
+   admissions is held against its plain version on its own inputs, right
+   after the admission's clock is read; no Dynamo frame; the model is
+   freed at the end. It prints each point's predicted and measured TTFT
+   p50/p99, TPOT p50/p99, e2e p50 and goodput, their ratios and coverage,
+   the phase's wall time against its bound, the peak memory and the
+   card's name and power limit;
+15. time each kernel, its plain version, its bound (the larger of bytes
    and operations; K5 float32's operations at the least of float32 FMAs,
    3xTF32 and 3xBF16 on the tensor cores, the choice printed; K7's at its
    float32 operations, its exponentials on the SFU alone printed beside
@@ -226,9 +247,9 @@ launches on the plans are counted in after that:
    256 MiB of other data went through L2 before each launch, print the
    calibrated SM clock, and time op_chain's loop: each step's time with 1
    and with 32 steps to an iteration;
-15. print the ``{"kernels": [...]}`` line (each kernel with the design each
+16. print the ``{"kernels": [...]}`` line (each kernel with the design each
    dtype runs; K4-K7's launches summed over the fused run and phases
-   serve, archs and serving), the card's name and power limit, and, last,
+   serve, archs, serving and slo), the card's name and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when no CUDA card is visible or the
@@ -1693,6 +1714,19 @@ def serving_line(label: str, rec, report=None, record=None) -> None:
           f"sites {dict(record.site_counts())}; notes {rec.notes}")
 
 
+def served_jamba():
+    """Phase serve's model and runtime: Jamba-v0.1 cut to one period, and
+    ``launch.serve``'s runtime under ``--kernels`` (K5 and K7 at prefill)."""
+    from repro_torch.configs.registry import get
+    from repro_torch.models.config import Runtime
+
+    spec = get("jamba-v0.1-52b").config
+    cfg = dataclasses.replace(spec, n_layers=len(spec.period))
+    rt = Runtime(remat=False, moe_groups=1, mamba_chunk=16, mlstm_chunk=16,
+                 attn_impl="pallas", use_pallas=True)
+    return cfg, rt
+
+
 def run_serving_tiny(dev: torch.device, db_path: str) -> dict[str, int]:
     """``characterize --plan serving --table --audit`` on the DB at
     ``db_path``, the counts set to 0 just before and read just after: every
@@ -1744,15 +1778,9 @@ def run_serving_full(dev: torch.device, db_path: str) -> dict[str, int]:
     import gc
 
     from repro_torch.api import Plan, ServingCostProbe, Session
-    from repro_torch.configs.registry import get
     from repro_torch.core.timing import Timer
-    from repro_torch.models.config import Runtime
 
-    spec = get("jamba-v0.1-52b").config
-    cfg = dataclasses.replace(spec, n_layers=len(spec.period))
-    # launch.serve's runtime under --kernels
-    rt = Runtime(remat=False, moe_groups=1, mamba_chunk=16, mlstm_chunk=16,
-                 attn_impl="pallas", use_pallas=True)
+    cfg, rt = served_jamba()
     b, p = SERVING_FULL["batch"], SERVING_FULL["prompt"]
     cells = (ServingCostProbe("prefill", b, p, cfg=cfg, rt=rt),
              ServingCostProbe("decode", b, p, cfg=cfg, rt=rt, max_len=SERVING_FULL["max_len"]))
@@ -1812,6 +1840,268 @@ def run_serving(dev: torch.device, run_db, fused_db) -> dict[str, int]:
     print(f"serving: Dynamo frames compiled in this phase: {compiled}")
     if compiled:
         fail(f"serving: {compiled} frames went through torch.compile; the phase runs eagerly")
+    return launches
+
+
+# Phase slo: serve-slo through the CLI on serving-tiny, then Jamba-v0.1's
+# continuous-batching pool at full width (phase serve's model, runtime and
+# seed) through Session.run over SloProbes, on a copy of the run's DB with
+# the fused plan's rows merged in, after phase serving: the eager engine is
+# host-bound and cannot share the host with the compile workers.
+SLO_FULL = dict(n_requests=12, n_slots=4, seed=0, max_len=2080, prompt_len=(256, 2048),
+                max_new=(8, 32))
+# below and above the pool's capacity: a request holds its slot for about
+# 20 decode steps of about 25 ms, so 4 slots serve about 4-5 req/s. The
+# point near it (4 req/s, about 8 s of the phase) was cut when a run took
+# 600.41 s of its 600 s bound on one H100 (PERF.md section 6)
+SLO_FULL_RATES = (1.0, 16.0)
+SLO_BOUND_S = 40.0                   # PERF.md section 2, written before its first run
+SLO_METRICS = (("TTFT p50", "ttft_p50_ns"), ("TTFT p99", "ttft_p99_ns"),
+               ("TPOT p50", "tpot_p50_ns"), ("TPOT p99", "tpot_p99_ns"),
+               ("e2e p50", "e2e_p50_ns"), ("goodput", "goodput_tok_s"))
+
+
+def slo_line(label: str, rec) -> dict:
+    """One SLO point: each metric predicted and measured, their ratio, and
+    the coverage; returns the point's figures."""
+    from repro_torch.core.perfmodel import slopoint_from_record
+
+    pt = slopoint_from_record(rec)
+    parts, figs = [], {"rate": pt.rate_rps, "coverage": pt.coverage}
+    for name, key in SLO_METRICS:
+        pred, meas = pt.predicted[key], pt.measured[key]
+        unit = "tok/s" if key.endswith("tok_s") else "ms"
+        scale = 1.0 if unit == "tok/s" else 1e-6
+        parts.append(f"{name} {pred * scale:.6g} / {meas * scale:.6g} {unit} "
+                     f"(ratio {pred / meas:.6g})")
+        figs[key] = {"predicted": pred, "measured": meas}
+    print(f"slo: {label} {rec.op} at {pt.rate_rps:g} req/s, predicted / measured: "
+          f"{'; '.join(parts)}; coverage {pt.coverage:.4f}; notes {rec.notes}")
+    return figs
+
+
+def run_slo_tiny(dev: torch.device, db_path: str) -> None:
+    """``serve-slo`` as users run it, on the DB at ``db_path``, the counts
+    set to 0 just before and read just after: every dep a cache hit, each
+    of the three points measured with both sides' p50 and p99 TTFT and p50
+    TPOT positive and a coverage in (0, 1], no kernel launched; a second
+    run all cache hits."""
+    from repro_torch.api.cli import main as cli_main
+    from repro_torch.api.plan import named_plan
+    from repro_torch.core.latency_db import LatencyDB, current_environment
+    from repro_torch.core.perfmodel import slopoint_from_record
+    from repro_torch.utils import parse_kv_notes
+
+    env = current_environment(dev)
+    plan = named_plan("slo")
+    before = LatencyDB(db_path)
+    missing = [p.op for p in plan if p.category != "slo" and p.key(env) not in before]
+    if missing:
+        fail(f"slo: the plan's deps {missing} are not in the run's DB")
+    zero_counts()
+    rc = cli_main(["serve-slo", "--db", db_path])
+    launches = {k: n for k, n in read_counts().items() if n}
+    db = LatencyDB(db_path)
+    ops = {p.op for p in plan}
+    failed = [f for f in db.failures() if f.op in ops]
+    if rc != 0 or failed:
+        fail(f"slo: serve-slo exited {rc}: {failed}")
+    if launches:
+        fail(f"slo: the serving-tiny points launched {launches}; their path runs no kernel")
+    for probe in plan:
+        if probe.category != "slo":
+            continue
+        rec = db.get(probe.key(env))
+        if rec is None:
+            fail(f"slo: no record for {probe.op}")
+        kv, pt = parse_kv_notes(rec.notes), slopoint_from_record(rec)
+        sides_ok = all(side.get(k, 0) > 0 for side in (pt.predicted, pt.measured)
+                       for k in ("ttft_p50_ns", "ttft_p99_ns", "tpot_p50_ns"))
+        if not (sides_ok and 0 < pt.coverage <= 1 and kv.get("exec") == "eager"
+                and kv.get("clock") == "wall"):
+            fail(f"slo: bad record for {probe.op}: {rec}")
+        check_cycles(rec)
+        slo_line("serving-tiny", rec)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(["serve-slo", "--db", db_path])
+    again = next((line for line in out.getvalue().splitlines() if " measured, " in line), "")
+    if rc != 0 or f"0 measured, {len(plan)} cached, 0 failed" not in again:
+        fail(f"slo: serve-slo's second run exited {rc}: {again}")
+    print(f"slo: serve-slo again on the same DB: {again}")
+
+
+@contextlib.contextmanager
+def capturing_schedules(results: list):
+    """Keep each schedule ``run_slo_point`` summarizes (the predicted one,
+    then the measured one, a point), through ``traffic.metrics.summarize``,
+    which it looks up at call time."""
+    from repro_torch.traffic import metrics
+
+    real = metrics.summarize
+
+    def summarize(result, *args, **kw):
+        results.append(result)
+        return real(result, *args, **kw)
+
+    metrics.summarize = summarize
+    try:
+        yield results
+    finally:
+        metrics.summarize = real
+
+
+@contextlib.contextmanager
+def holding_measured_admissions(worst: dict):
+    """Hold every K5 and K7 call of the slot pool's measured admissions
+    (``traffic.scheduler.EngineExecutor.admit``; the warm-ups call the pool
+    itself) against its plain version on that call's inputs, under
+    ROW_TOL (K7's final state too), right after the admission has read its
+    clock, and drop the call. ``worst`` gathers each kernel's calls and
+    worst err/limit, and the admissions."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.mamba_scan import mamba_scan_plain
+    from repro_torch.traffic import scheduler
+
+    real = scheduler.EngineExecutor.admit
+    per = ["flash_attention"] + ["mamba_scan"] * 7
+
+    def ratio(label, got, want):
+        if got.shape != want.shape or got.dtype != want.dtype:
+            fail(f"{label}: got {got.dtype} {tuple(got.shape)}, plain version gives "
+                 f"{want.dtype} {tuple(want.shape)}")
+        if not torch.isfinite(got).all():
+            fail(f"{label}: non-finite output")
+        r = row_scaled_ratio(got, want, ROW_TOL[want.dtype])
+        if r > 1.0:
+            fail(f"{label}: disagrees with the plain version ({r:.3f} x the limit)")
+        return r
+
+    def admit(self, slot, req):
+        calls = []
+        with recording_kernels(calls):
+            out = real(self, slot, req)
+        if [c[0] for c in calls] != per:
+            fail(f"slo: admission of request {req.uid} made the calls "
+                 f"{[c[0] for c in calls]}, want {per}")
+        with torch.no_grad():
+            for i, (name, args, kw, got) in enumerate(calls):
+                label = f"slo request {req.uid} ({req.prompt_len} tokens) call {i} {name}"
+                if name == "flash_attention":
+                    rs = [ratio(label, got, flash_attention_plain(*args, **kw))]
+                else:
+                    y_want, h_want = mamba_scan_plain(*args, **kw)
+                    rs = [ratio(label, got[0], y_want), ratio(f"{label} h", got[1], h_want)]
+                n, w = worst.get(name, (0, 0.0))
+                worst[name] = (n + 1, max(w, *rs))
+        worst["admissions"] = worst.get("admissions", 0) + 1
+        return out
+
+    scheduler.EngineExecutor.admit = admit
+    try:
+        yield worst
+    finally:
+        scheduler.EngineExecutor.admit = real
+
+
+def run_slo_full(dev: torch.device, db_path: str) -> tuple[dict[str, int], dict]:
+    """Jamba-v0.1's pool at full width through ``Session.run`` over
+    ``SloProbe``s at SLO_FULL_RATES on the DB at ``db_path``, the counts
+    set to 0 just before and read just after: each point measured; every
+    request its whole budget on both sides; only K5 and K7 launched, seven
+    K7 a K5 and K5 once an admission (a point's records of its distinct
+    prompt lengths, its warm-ups of those lengths and of the one-token
+    prompt before the decode step, its measured admissions); every K5 and
+    K7 call of the measured admissions held against its plain version
+    (:func:`holding_measured_admissions`). Frees the model. Returns the
+    launches and the points' figures."""
+    import gc
+
+    from repro_torch.api import Plan, Session, SloProbe
+    from repro_torch.api import probes as torch_probes
+    from repro_torch.core.timing import Timer
+    from repro_torch.traffic import generate_trace
+
+    cfg, rt = served_jamba()
+    probes = tuple(SloProbe(r, cfg=cfg, rt=rt, **SLO_FULL) for r in SLO_FULL_RATES)
+    traces = [generate_trace(p.trace_config()) for p in probes]
+    session = Session(db=db_path, device=dev, timer=Timer(warmup=2, reps=10, device=dev))
+    schedules, worst = [], {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    with capturing_schedules(schedules), holding_measured_admissions(worst):
+        result = session.run(Plan(probes, name="slo-full"))
+    wall = time.perf_counter() - t0
+    launches = {k: n for k, n in read_counts().items() if n}
+    peak = torch.cuda.max_memory_allocated(dev)
+    figs = {}
+    for r in result.results:
+        if r.record is None:
+            fail(f"slo: {r.probe.op} failed: {r.failure}")
+        check_cycles(r.record)
+        figs[r.probe.op] = slo_line("full width", r.record)
+    if len(schedules) != 2 * len(probes):
+        fail(f"slo: {len(schedules)} schedules summarized, want {2 * len(probes)}")
+    admissions = 0
+    for i, trace in enumerate(traces):
+        budget = [r.max_new for r in sorted(trace, key=lambda r: r.uid)]
+        for side, res in (("predicted", schedules[2 * i]), ("measured", schedules[2 * i + 1])):
+            got = [rr.n_tokens for rr in res.requests]
+            if got != budget or {rr.finish_reason for rr in res.requests} != {"max_new"}:
+                fail(f"slo: {probes[i].op} {side}: tokens {got}, want the budgets {budget}")
+        n_lens = len({r.prompt_len for r in trace})
+        admissions += n_lens + (n_lens + 1) + len(trace)
+        print(f"slo: {probes[i].op}: prompts of {sorted(r.prompt_len for r in trace)} tokens, "
+              f"budgets {budget}; measured: makespan {schedules[2 * i + 1].makespan_ns / 1e6:.3f} "
+              f"ms, {schedules[2 * i + 1].decode_steps} decode steps; predicted makespan "
+              f"{schedules[2 * i].makespan_ns / 1e6:.6g} ms")
+    want = {"flash_attention": admissions, "mamba_scan": 7 * admissions}
+    if launches != want:
+        fail(f"slo: the full-width points launched {launches}, want {want} (K5 once and K7 "
+             "seven times an admission: records, warm-ups and measured, nothing else)")
+    held = worst.pop("admissions", 0)
+    if held != len(probes) * SLO_FULL["n_requests"]:
+        fail(f"slo: {held} measured admissions held, want "
+             f"{len(probes) * SLO_FULL['n_requests']}")
+    print(f"slo: full width {cfg.name} at {cfg.n_layers} layers, {SLO_FULL['n_slots']} slots on "
+          f"a cache of {SLO_FULL['max_len']}: {len(probes)} points in {wall:.2f} s (the model "
+          f"built once), launches {launches}; the K5 and K7 calls of the {held} measured "
+          f"admissions held against their plain versions: "
+          + ", ".join(f"{k} {n} calls, worst err/limit {w:.3f}" for k, (n, w) in worst.items())
+          + f"; peak memory allocated {peak} B; card {card()}")
+    del result, probes, session, schedules
+    gc.collect()
+    torch.cuda.empty_cache()
+    if torch_probes._SERVED_MODELS:
+        fail(f"slo: the served model outlived the phase: {list(torch_probes._SERVED_MODELS)}")
+    print(f"slo: after the phase the model is freed: {torch.cuda.memory_allocated(dev)} B "
+          "allocated")
+    return launches, figs
+
+
+def run_slo(dev: torch.device, run_db, fused_db) -> dict[str, int]:
+    """Phase slo: ``serve-slo`` on serving-tiny, then Jamba-v0.1's pool at
+    full width, on a copy of the run's DB with the fused plan's rows merged
+    in. No Dynamo frame may compile. Returns the full-width points'
+    launches (serving-tiny's are none)."""
+    from repro_torch.core.latency_db import LatencyDB
+
+    frames = torch._dynamo.utils.counters["frames"]["total"]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        db_path = str(Path(tmp) / "slo_db.json")
+        db = LatencyDB()
+        db.merge(run_db, fused_db)
+        db.save(db_path)
+        run_slo_tiny(dev, db_path)
+        launches, figs = run_slo_full(dev, db_path)
+    compiled = torch._dynamo.utils.counters["frames"]["total"] - frames
+    print(f"slo: Dynamo frames compiled in this phase: {compiled}")
+    if compiled:
+        fail(f"slo: {compiled} frames went through torch.compile; the phase runs eagerly")
+    print(f"slo: phase wall {time.perf_counter() - t0:.2f} s against the bound "
+          f"{SLO_BOUND_S:.0f} s; figures {json.dumps(figs)}; card {card()}")
     return launches
 
 
@@ -2433,13 +2723,14 @@ def library_call(name: str, args: tuple, kw: dict):
 
 def time_fused(dev: torch.device, err: dict, jamba: dict, cases: dict,
                launches: dict, serve_launches: dict, archs_launches: dict,
-               archs_cases: dict, serving_launches: dict) -> list[dict]:
+               archs_cases: dict, serving_launches: dict,
+               slo_launches: dict) -> list[dict]:
     """Phase 5, K4-K7: the kernel (CUDA events behind a lead), its plain
     version (wall time to completion), its bound and the library call, at
     the fused plan's larger unit workload (n = 6) and at the Jamba case
     (and at the second case of JAMBA_TIMED_MORE); K5 also at each case of
     phase archs, on the inputs of its first call there; its launches summed
-    over the fused run and phases serve, archs and serving (also by
+    over the fused run and phases serve, archs, serving and slo (also by
     phase)."""
     from repro_torch.core.timing import Timer
     from repro_torch.inkernel import (FUSED_KERNELS, FUSED_LENS, build_fused, fused_kwargs,
@@ -2492,7 +2783,8 @@ def time_fused(dev: torch.device, err: dict, jamba: dict, cases: dict,
             extra[key] = measure(name, margs, mkw, f"Jamba {mlabel}")
             extra[key].update(jamba[mlabel], shape=mlabel)
         by_phase = {"fused": launches[name], "serve": serve_launches.get(name, 0),
-                    "serving": serving_launches.get(name, 0)}
+                    "serving": serving_launches.get(name, 0),
+                    "slo": slo_launches.get(name, 0)}
         if name == "flash_attention":
             by_phase["archs"] = sum(archs_launches.values())
             extra["archs"] = {}
@@ -3249,8 +3541,12 @@ def main() -> int:
     # after the pool has stopped
     t0 = time.perf_counter()
     serving_launches = run_serving(dev, run_db, fused_db)
-    del run_db, fused_db
     phase("serving", t0)
+
+    t0 = time.perf_counter()
+    slo_launches = run_slo(dev, run_db, fused_db)
+    del run_db, fused_db
+    phase("slo", t0)
 
     # timed after the pool has stopped, so that no compile worker shares the
     # host with the plain versions' launches; the plans' launches of K1-K3
@@ -3261,7 +3557,7 @@ def main() -> int:
     rungs["inkernel.mem.67108864"].lap()
     kernels = time_kernels(dev, err, big=rungs["inkernel.mem.67108864"])
     kernels += time_fused(dev, fused_err, jamba, cases, fused_launches, serve_launches,
-                          archs_launches, archs_cases, serving_launches)
+                          archs_launches, archs_cases, serving_launches, slo_launches)
     clock_study(dev, rungs=rungs)
     loop_study(dev)
     del rungs, archs_cases

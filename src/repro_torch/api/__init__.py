@@ -7,21 +7,24 @@
 * :class:`ResultSet` — per-probe outcomes plus report helpers.
 
 CLI: ``python -m repro_torch characterize --plan
-quick|table2|memory|inkernel|memory-inkernel|fused|serving --db PATH [--table]
-[--device cuda|cpu]``.
+quick|table2|memory|inkernel|memory-inkernel|fused|serving|slo --db PATH
+[--table] [--device cuda|cpu]`` and ``python -m repro_torch serve-slo --db
+PATH [--rates R1,R2] [--trace PATH] [--device cuda|cpu]``.
 """
-from repro_torch.api.plan import (PLAN_NAMES, PORTED_PLANS, QUICK_OPS, SERVING_CELLS, Plan,
-                                  named_plan)
+from repro_torch.api.plan import (PLAN_NAMES, PORTED_PLANS, QUICK_OPS, SERVING_CELLS,
+                                  SLO_RATES, Plan, named_plan)
 from repro_torch.api.probes import (ClockOverheadProbe, FusedKernelProbe,
                                     InstructionProbe, KernelChainProbe, KernelProbe,
                                     MemoryChaseProbe, MemoryProbe, Probe, ProbeContext,
-                                    ServingCostProbe, serving_tiny_config)
+                                    ServingCostProbe, SloProbe, serving_tiny_config)
 from repro_torch.api.session import ProbeResult, ResultSet, Session
 
 __all__ = [
-    "PLAN_NAMES", "PORTED_PLANS", "QUICK_OPS", "SERVING_CELLS", "Plan", "named_plan",
+    "PLAN_NAMES", "PORTED_PLANS", "QUICK_OPS", "SERVING_CELLS", "SLO_RATES", "Plan",
+    "named_plan",
     "ClockOverheadProbe", "FusedKernelProbe", "InstructionProbe", "KernelChainProbe",
     "KernelProbe", "MemoryChaseProbe", "MemoryProbe",
     "Probe", "ProbeContext", "ProbeResult", "ResultSet", "ServingCostProbe", "Session",
+    "SloProbe",
     "serving_tiny_config",
 ]

@@ -44,6 +44,16 @@ tokens), each priced by the performance model from the DB's rows (the
 DB that holds the quick and memory plans' rows they are cache hits), and
 ``--table`` prints the predicted against measured table.
 
+``python -m repro_torch serve-slo --db DB [--rates 20,50,100] [--trace
+PATH] [--n-requests N] [--slots S] [--seed K]`` is the predicted-vs-measured
+serving SLO sweep: ``Plan.slo`` (the ``QUICK_OPS`` at O3 and three chase
+rungs, then one ``slo.r<rate>`` point a rate) through the session, and the
+throughput-vs-latency table. Each point replays one seeded arrival trace
+through serving-tiny's continuous-batching slot pool (measured, on the
+host's wall clock) and through the scheduler with the steps' costs priced
+from the DB's rows (predicted). ``--trace`` replays a saved trace
+(``traffic.save_trace``, from either package) as one uncached point.
+
 ``--plan inkernel`` times each of the 58 in-kernel rows inside the kernel
 (on the card by the SM clock sandwich) beside its dispatch-level O3 twin;
 ``--table`` then prints the pairing, dispatch against in-kernel (the
@@ -81,7 +91,7 @@ def build_parser() -> argparse.ArgumentParser:
     ch.add_argument("--plan", choices=PLAN_NAMES, default="quick",
                     help="named probe plan (default: quick; ported so far: "
                          "quick, table2, memory, inkernel, memory-inkernel, fused, "
-                         "serving)")
+                         "serving, slo)")
     ch.add_argument("--db", required=True,
                     help="LatencyDB JSON path (loaded if present; flushed "
                          "after every probe)")
@@ -155,6 +165,32 @@ def build_parser() -> argparse.ArgumentParser:
                     help="'quick' (QUICK_OPS), 'all' (full registry), or a "
                          "comma-separated op list for --attribution")
     au.set_defaults(func=cmd_audit)
+
+    ss = sub.add_parser(
+        "serve-slo",
+        help="predicted-vs-measured serving SLO sweep over arrival rates")
+    ss.add_argument("--db", default="latency_db.json",
+                    help="LatencyDB JSON path: pricing inputs are read from "
+                         "it, slo.<rate> records are flushed back to it")
+    ss.add_argument("--rates", default=None,
+                    help="comma-separated arrival rates in req/s "
+                         "(default: the Plan.slo sweep 20,50,100)")
+    ss.add_argument("--trace", default=None,
+                    help="replay a saved trace JSON (traffic.save_trace) "
+                         "as one uncached point instead of the rate sweep")
+    ss.add_argument("--n-requests", type=int, default=12,
+                    help="requests per generated trace (rate sweep only)")
+    ss.add_argument("--slots", type=int, default=4,
+                    help="slot-pool size (max batch in flight)")
+    ss.add_argument("--seed", type=int, default=0,
+                    help="trace seed: same seed -> identical request stream")
+    ss.add_argument("--force", action="store_true",
+                    help="re-run slo points already in the DB")
+    ss.add_argument("--device", default="cuda",
+                    help="device to serve on: cuda[:N] (default cuda:0) or cpu")
+    ss.add_argument("--warmup", type=int, default=2)
+    ss.add_argument("--reps", type=int, default=10)
+    ss.set_defaults(func=cmd_serve_slo)
     return ap
 
 
@@ -317,6 +353,67 @@ def cmd_audit(args: argparse.Namespace) -> int:
     if failed and args.strict:
         return 1
     return 0
+
+
+def cmd_serve_slo(args: argparse.Namespace) -> int:
+    import os
+
+    from repro_torch.api.plan import Plan
+    from repro_torch.core.perfmodel import slo_markdown, slopoint_from_record
+
+    try:
+        device = resolve_device(args.device)
+    except (RuntimeError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if args.trace:
+        # Replay a saved trace as a one-off point: no Session, no caching —
+        # a trace file is an arbitrary workload, not a stable cache identity.
+        from repro_torch.api.probes import serving_tiny_config
+        from repro_torch.core.latency_db import current_environment
+        from repro_torch.models import transformer
+        from repro_torch.serving.engine import Engine
+        from repro_torch.traffic import load_trace, run_slo_point, slo_table
+
+        trace = load_trace(args.trace)
+        if not trace:
+            print(f"error: trace {args.trace} holds no requests", file=sys.stderr)
+            return 2
+        cfg, rt = serving_tiny_config()
+        eng = Engine(transformer.init_lm(cfg, seed=0, device=device), rt)
+        db = LatencyDB(args.db) if os.path.exists(args.db) else LatencyDB()
+        pred, meas, cov = run_slo_point(eng, db, trace, n_slots=args.slots,
+                                        filters=current_environment(device))
+        span_s = trace[-1].arrival_ns * 1e-9
+        rate = len(trace) / span_s if span_s > 0 else float(len(trace))
+        print(f"trace {args.trace}: {len(trace)} requests, effective rate "
+              f"{rate:.3g} req/s, estimator coverage {cov:.1%}")
+        print(slo_table([{"rate_rps": rate, "predicted": pred, "measured": meas}]))
+        return 0
+
+    rates = [float(r) for r in args.rates.split(",")] if args.rates else None
+    kw = dict(n_requests=args.n_requests, n_slots=args.slots, seed=args.seed)
+    plan = Plan.slo(rates, **kw) if rates is not None else Plan.slo(**kw)
+    session = Session(db=args.db, device=device,
+                      timer=Timer(warmup=args.warmup, reps=args.reps, device=device))
+    print(f"plan '{plan.name}': {len(plan)} probes -> {args.db} "
+          f"[{session.env['backend']}/{session.env['device_kind']}, "
+          f"{session.env['jax_version']}]")
+    result = session.run(plan, force=args.force)
+    print(f"plan '{plan.name}': {result.summary()}")
+    if result.cached and not result.measured and not result.failed:
+        print("all probes were cache hits; pass --force to re-measure")
+    for r in result.failed:
+        f = r.failure
+        print(f"  FAILED {f.op}@{f.opt_level}: {f.error_type}: {f.message}")
+    wanted = {p.op for p in plan if p.category == "slo"}
+    points = sorted((slopoint_from_record(rec)
+                     for rec in session.db.query(category="slo", **session.env)
+                     if rec.op in wanted),
+                    key=lambda p: p.rate_rps)
+    print()
+    print(slo_markdown(points))
+    return 1 if result.failed else 0
 
 
 def main(argv: Sequence[str] | None = None) -> int:

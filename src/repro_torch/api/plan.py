@@ -3,7 +3,7 @@
 A :class:`Plan` is an ordered, duplicate-free tuple of probes; builders make
 the paper's sweeps, ``+`` composes plans and ``filter`` trims them. The
 algebra and the ``quick``, ``table2``, ``memory``, ``inkernel``,
-``memory-inkernel``, ``fused`` and ``serving`` plans are those of
+``memory-inkernel``, ``fused``, ``serving`` and ``slo`` plans are those of
 ``repro.api.plan``, so both packages give the same ordered logical keys;
 ``Plan.clock_overhead`` defaults to the three levels, O0, O1 and O3, as
 there. The other named plans of the JAX package are not ported yet.
@@ -17,7 +17,7 @@ from repro_torch import inkernel
 from repro_torch.api.probes import (ClockOverheadProbe, FusedKernelProbe,
                                     InstructionProbe, KernelChainProbe, KernelProbe,
                                     MemoryChaseProbe, MemoryProbe, Probe,
-                                    ServingCostProbe)
+                                    ServingCostProbe, SloProbe)
 from repro_torch.core import chains
 from repro_torch.core.chains import OpSpec
 from repro_torch.core.optlevels import OPT_LEVELS
@@ -33,11 +33,16 @@ PLAN_NAMES = ("quick", "table2", "memory", "inkernel", "memory-inkernel",
               "fused", "serving", "collectives", "serving-sharded", "slo",
               "full")
 PORTED_PLANS = ("quick", "table2", "memory", "inkernel", "memory-inkernel", "fused",
-                "serving")
+                "serving", "slo")
 
 # Representative (batch, prompt_len) serving cells: a single-sequence short
 # prompt and a batched longer one, as in the JAX package.
 SERVING_CELLS = ((1, 16), (2, 64))
+
+# The SLO plan's arrival rates, as in the JAX package: below, around and
+# above the tiny engine's saturation point, so that the throughput-vs-latency
+# curve has a flat region and a queueing knee.
+SLO_RATES = (20.0, 50.0, 100.0)
 
 # The JAX package's in-kernel chase ladder (``Plan.memory_inkernel``): its
 # 16 MiB VMEM budget >> 8, >> 6, >> 4, >> 2, x1, x2, x4, written out so that
@@ -171,6 +176,23 @@ class Plan:
         return Plan(_dedupe(tuple(probes)), name="serving")
 
     @staticmethod
+    def slo(rates: Sequence[float] = SLO_RATES, n_requests: int = 12,
+            n_slots: int = 4, seed: int = 0, cfg=None, rt=None,
+            with_deps: bool = True) -> "Plan":
+        """Serving-SLO sweep: one :class:`SloProbe` per arrival rate —
+        predicted-vs-measured TTFT/TPOT percentiles over the same seeded
+        trace — preceded by default by the estimator's pricing inputs,
+        exactly like :meth:`serving`: plan order is execution order, so each
+        SLO point's simulator is measurement-backed."""
+        probes: list[Probe] = []
+        if with_deps:
+            probes += list(Plan.instructions(ops=QUICK_OPS, opt_levels=("O3",)))
+            probes += list(Plan.memory((1 << 13, 1 << 17, 1 << 21)))
+        probes += [SloProbe(r, n_requests=n_requests, n_slots=n_slots, seed=seed,
+                            cfg=cfg, rt=rt) for r in rates]
+        return Plan(_dedupe(tuple(probes)), name="slo")
+
+    @staticmethod
     def inkernel(registry: Sequence[OpSpec] | None = None,
                  ops: Iterable[str] | None = None,
                  categories: Iterable[str] | None = None,
@@ -237,6 +259,8 @@ def named_plan(name: str) -> Plan:
         plan = Plan.fused()
     elif name == "serving":
         plan = Plan.serving()
+    elif name == "slo":
+        plan = Plan.slo()
     elif name in PLAN_NAMES:
         raise ValueError(f"plan {name!r} is not ported yet; ported plans: "
                          f"{PORTED_PLANS} (see ROADMAP.md)")

@@ -25,6 +25,9 @@ packages.
 * :class:`ServingCostProbe` — one serving cell, the Engine's prefill or
   decode step priced from the DB's rows and timed (``serving.<phase>.<cell>``;
   plan name ``serving``).
+* :class:`SloProbe` — one serving-SLO point: a seeded arrival trace through
+  the DB-priced simulator and the engine's slot pool (``slo.r<rate>``; plan
+  name ``slo``).
 """
 from __future__ import annotations
 
@@ -653,3 +656,121 @@ class ServingCostProbe(Probe):
                  f"bound={report.bound} exec=eager"
                  + (" lead=none" if ctx.device.type == "cuda" else ""))
         return self._record(ctx, m, notes=notes)
+
+
+class SloProbe(Probe):
+    """One serving-SLO point: a seeded arrival trace at one rate, replayed
+    through *both* sides of ``repro_torch.traffic`` — the LatencyDB-priced
+    simulator (predicted) and the engine's continuous-batching slot pool
+    (measured) — and aggregated into exact-rank TTFT/TPOT/e2e percentiles.
+
+    The record's ``latency_ns`` is the **measured p50 TTFT** (the headline
+    SLO number); every other percentile, both predicted and measured, plus
+    goodput and the estimator's coverage, ride in the notes and are parsed
+    back by :func:`~repro_torch.core.perfmodel.slopoint_from_record`. The
+    measured side is the eager engine's host wall clock to device
+    completion, which the notes say (``exec=eager clock=wall``). Like
+    :class:`ServingCostProbe` this is a consumer probe: it prices against
+    ``ctx.db``, so schedule it *after* the instruction/memory rows
+    (``Plan.slo`` does).
+
+    ``prepare`` only builds the model from seed 0 on the session's device
+    (``_served_model``), which the session holds until its run ends, so the
+    points of one run share one build (the JAX package builds it in each
+    point); ``run`` does the rest, pricing included, as it consumes rows
+    sibling probes may still be flushing.
+
+    Op name ``slo.r<rate>``; a non-default trace shape (request count, slot
+    count, seed, arrival process), cache size or model is a different
+    experiment and suffixes the cache identity, as in the JAX package.
+    """
+
+    category = "slo"
+    DEFAULT_N = 12
+    DEFAULT_SLOTS = 4
+
+    def __init__(self, rate_rps: float, n_requests: int = DEFAULT_N,
+                 n_slots: int = DEFAULT_SLOTS, seed: int = 0,
+                 cfg=None, rt=None, max_len: int | None = None,
+                 process: str = "poisson", burstiness_cv: float = 1.0,
+                 prompt_len: tuple[int, int] = (4, 8),
+                 max_new: tuple[int, int] = (4, 8)):
+        default_cfg, default_rt = serving_tiny_config()
+        self.rate_rps = float(rate_rps)
+        self.n_requests = int(n_requests)
+        self.n_slots = int(n_slots)
+        self.seed = int(seed)
+        self.cfg = cfg if cfg is not None else default_cfg
+        self.rt = rt if rt is not None else default_rt
+        self.max_len = max_len
+        self.process = process
+        self.burstiness_cv = float(burstiness_cv)
+        self.prompt_len = tuple(prompt_len)
+        self.max_new = tuple(max_new)
+        self.opt_level = "O3"
+        self.dtype = self.cfg.compute_dtype
+        self.base_op = f"slo.r{self.rate_rps:g}"
+        self.op = self.base_op
+        if (self.n_requests, self.n_slots) != (self.DEFAULT_N, self.DEFAULT_SLOTS):
+            self.op += f".n{self.n_requests}s{self.n_slots}"
+        if self.seed != 0:
+            self.op += f".seed{self.seed}"
+        if self.process != "poisson":
+            self.op += f".{self.process}{self.burstiness_cv:g}"
+        if max_len is not None:
+            self.op += f".c{int(max_len)}"
+        if self.cfg.name != default_cfg.name:
+            self.op += f".{self.cfg.name}"
+        self.last_result = None
+
+    def match_names(self) -> frozenset[str]:
+        # the full point name, the rate family and the whole family ``slo``
+        return frozenset((self.op, self.base_op, "slo"))
+
+    def trace_config(self):
+        """The (deterministic) trace recipe this point replays."""
+        from repro_torch.traffic.traces import TraceConfig
+
+        return TraceConfig(n_requests=self.n_requests, rate_rps=self.rate_rps,
+                           seed=self.seed, process=self.process,
+                           burstiness_cv=self.burstiness_cv,
+                           prompt_len=self.prompt_len, max_new=self.max_new,
+                           vocab_size=self.cfg.vocab_size)
+
+    def prepare(self, ctx: ProbeContext):
+        return _served_model(self.cfg, ctx.device)
+
+    def run(self, ctx: ProbeContext) -> LatencyRecord:
+        from repro_torch.serving.engine import Engine
+        from repro_torch.traffic.simulate import run_slo_point
+        from repro_torch.traffic.traces import generate_trace
+
+        eng = Engine(_served_model(self.cfg, ctx.device), self.rt)
+        trace = generate_trace(self.trace_config())
+        db = ctx.db if ctx.db is not None else LatencyDB()
+        if db.path and os.path.exists(db.path):
+            # rows another run flushed to the DB's path since it was loaded
+            db.merge(LatencyDB(db.path))
+        pred, meas, coverage = run_slo_point(
+            eng, db, trace, n_slots=self.n_slots, max_len=self.max_len,
+            opt_level=self.opt_level, filters=dict(ctx.env))
+        self.last_result = (pred, meas, coverage)
+        m = Measurement(median_ns=meas.ttft_ns[50.0], mad_ns=0.0,
+                        min_ns=meas.ttft_ns[50.0], n=self.n_requests)
+        notes = (f"rate={self.rate_rps:g} n={self.n_requests} "
+                 f"slots={self.n_slots} seed={self.seed} "
+                 f"model={self.cfg.name} "
+                 f"pred_ttft_p50_ns={pred.ttft_ns[50.0]:.1f} "
+                 f"pred_ttft_p99_ns={pred.ttft_ns[99.0]:.1f} "
+                 f"pred_tpot_p50_ns={pred.tpot_ns[50.0]:.1f} "
+                 f"pred_tpot_p99_ns={pred.tpot_ns[99.0]:.1f} "
+                 f"pred_e2e_p50_ns={pred.e2e_ns[50.0]:.1f} "
+                 f"pred_goodput_tok_s={pred.goodput_tok_s:.3f} "
+                 f"meas_ttft_p50_ns={meas.ttft_ns[50.0]:.1f} "
+                 f"meas_ttft_p99_ns={meas.ttft_ns[99.0]:.1f} "
+                 f"meas_tpot_p50_ns={meas.tpot_ns[50.0]:.1f} "
+                 f"meas_tpot_p99_ns={meas.tpot_ns[99.0]:.1f} "
+                 f"meas_e2e_p50_ns={meas.e2e_ns[50.0]:.1f} "
+                 f"meas_goodput_tok_s={meas.goodput_tok_s:.3f} "
+                 f"coverage={coverage:.4f} exec=eager")
+        return self._record(ctx, m, notes=notes, clock="wall")

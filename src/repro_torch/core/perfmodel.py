@@ -18,12 +18,12 @@ performance models such as PPT-GPU accurate. Two models:
   a histogram, matmul FLOPs, kernel sites, bytes and collectives), so that
   the JAX estimator's inputs price to the JAX estimator's report.
   :class:`ServingPoint` parses the ``serving.<phase>.<cell>`` rows the
-  ``ServingCostProbe`` writes (predicted against measured).
+  ``ServingCostProbe`` writes (predicted against measured), and
+  :class:`SloPoint` the ``slo.r<rate>`` rows of the ``SloProbe``.
 
 The algebra is the JAX package's, set for a TPU and kept as it is: 8
 lanes, ``THROUGHPUT_FACTOR`` 0.25, ``default_ns`` 5, 8 memory streams, a
-dot's FLOPs / 2 priced as ``fma.float32`` issues. ``SloPoint`` and
-``slo_markdown`` come with the SLO simulator (ROADMAP item 16).
+dot's FLOPs / 2 priced as ``fma.float32`` issues.
 """
 from __future__ import annotations
 
@@ -575,6 +575,77 @@ def servingpoint_from_record(rec: LatencyRecord) -> ServingPoint:
         tp=int(kv.get("tp", 1)),
         collective_ns=float(kv.get("collective_ns", 0.0)),
         coll_unpriced=float(kv.get("coll_unpriced", 0.0)))
+
+
+@dataclasses.dataclass(frozen=True)
+class SloPoint:
+    """One ``slo.r<rate>`` row: predicted-vs-measured serving SLOs at one
+    arrival rate, parsed back from the record an
+    :class:`~repro_torch.api.SloProbe` persisted. The record's
+    ``latency_ns`` is the measured p50 TTFT; the notes carry the full
+    percentile set for both sides (ns), goodput (tok/s) and the estimator
+    coverage of the priced prefill/decode steps.
+    """
+
+    rate_rps: float
+    n_requests: int
+    n_slots: int
+    predicted: dict               # metric name -> value (pred_* keys, no prefix)
+    measured: dict                # same metric names, measured side
+    coverage: float
+    model: str = ""
+
+    METRICS = ("ttft_p50_ns", "ttft_p99_ns", "tpot_p50_ns", "tpot_p99_ns",
+               "e2e_p50_ns", "goodput_tok_s")
+
+    def abs_log10_error(self, metric: str) -> float:
+        """|log10(pred/meas)| for one metric — the semantics of
+        :attr:`ServingPoint.abs_log10_error`."""
+        p, m = self.predicted.get(metric, 0.0), self.measured.get(metric, 0.0)
+        if p is None or m is None or p <= 0 or m <= 0 or math.isnan(p) or math.isnan(m):
+            return float("inf")
+        return abs(math.log10(p / m))
+
+
+def slopoint_from_record(rec: LatencyRecord) -> SloPoint:
+    """Parse an ``slo.*`` :class:`LatencyRecord` back into its point."""
+    kv = parse_kv_notes(rec.notes)
+    assert rec.op.split(".")[0] == "slo", rec.op
+
+    def side(prefix: str) -> dict:
+        return {m: float(kv[f"{prefix}_{m}"]) for m in SloPoint.METRICS
+                if f"{prefix}_{m}" in kv}
+
+    return SloPoint(
+        rate_rps=float(kv["rate"]), n_requests=int(kv.get("n", 0)),
+        n_slots=int(kv.get("slots", 0)),
+        predicted=side("pred"), measured=side("meas"),
+        coverage=float(kv.get("coverage", 0.0)),
+        model=kv.get("model", ""))
+
+
+def slo_markdown(points: "list[SloPoint]") -> str:
+    """Markdown throughput-vs-latency table over :class:`SloPoint` rows —
+    the ``serve-slo`` CLI's output. Latencies in ms, goodput in tok/s."""
+    def ms(d: dict, key: str) -> str:
+        v = d.get(key)
+        return f"{v / 1e6:.3f}" if v is not None else "-"
+
+    lines = ["| rate (req/s) | side | TTFT p50 | TTFT p99 | TPOT p50 "
+             "| TPOT p99 | goodput (tok/s) | coverage |",
+             "|---" * 8 + "|"]
+    for pt in points:
+        for side_name, d in (("predicted", pt.predicted), ("measured", pt.measured)):
+            good = d.get("goodput_tok_s")
+            lines.append(
+                f"| {pt.rate_rps:g} | {side_name} "
+                f"| {ms(d, 'ttft_p50_ns')} | {ms(d, 'ttft_p99_ns')} "
+                f"| {ms(d, 'tpot_p50_ns')} | {ms(d, 'tpot_p99_ns')} "
+                f"| {good:.1f} | {pt.coverage:.1%} |"
+                if good is not None else
+                f"| {pt.rate_rps:g} | {side_name} | - | - | - | - | - "
+                f"| {pt.coverage:.1%} |")
+    return "\n".join(lines)
 
 
 @functools.cache

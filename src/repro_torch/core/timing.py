@@ -288,7 +288,8 @@ class Timer:
               n1: int, n2: int, *args: Any,
               warmup: int | None = None, reps: int | None = None,
               use_min: bool = True,
-              retry_lens: tuple[int, int] | None = None) -> Measurement:
+              retry_lens: tuple[int, int] | None = None,
+              interleave: bool = False) -> Measurement:
         """Per-op latency from two chain lengths (overhead cancels exactly).
 
         With ``use_min`` (default) the difference of the per-length minimum
@@ -297,17 +298,21 @@ class Timer:
         widened spread (``retry_lens``; default ``(n1, n2 + 3*(n2 - n1))``),
         and if still non-positive a :class:`NoisySlopeError` is raised.
         Passing ``retry_lens == (n1, n2)`` disables the retry.
+
+        ``interleave`` alternates one sample of each length per repetition
+        instead of taking all of ``n1``'s first: a slow stretch of the host
+        (a neighbour on its cores) that outlasts one length's samples then
+        slows both lengths, not one (adaptive fidelity is not applied).
         """
         if not n2 > n1 >= 0:
             raise ValueError(f"slope needs n2 > n1 >= 0, got ({n1}, {n2})")
-        diff = self._slope_once(fn_by_len, n1, n2, *args,
-                                warmup=warmup, reps=reps, use_min=use_min)
+        kw = dict(warmup=warmup, reps=reps, use_min=use_min, interleave=interleave)
+        diff = self._slope_once(fn_by_len, n1, n2, *args, **kw)
         if diff.median_ns > 0:
             return diff
         widened = retry_lens if retry_lens is not None else (n1, n2 + 3 * (n2 - n1))
         if tuple(widened) != (n1, n2) and widened[1] > widened[0] >= 0:
-            retry = self._slope_once(fn_by_len, widened[0], widened[1], *args,
-                                     warmup=warmup, reps=reps, use_min=use_min)
+            retry = self._slope_once(fn_by_len, widened[0], widened[1], *args, **kw)
             if retry.median_ns > 0:
                 return dataclasses.replace(retry, retry_lens=tuple(widened))
         raise NoisySlopeError(
@@ -319,15 +324,37 @@ class Timer:
     def _slope_once(self, fn_by_len: Callable[[int], Callable[..., Any]],
                     n1: int, n2: int, *args: Any,
                     warmup: int | None = None, reps: int | None = None,
-                    use_min: bool = True) -> Measurement:
-        t1 = self.time_callable(fn_by_len(n1), *args, warmup=warmup, reps=reps)
-        t2 = self.time_callable(fn_by_len(n2), *args, warmup=warmup, reps=reps)
+                    use_min: bool = True, interleave: bool = False) -> Measurement:
+        if interleave:
+            t1, t2 = self._time_interleaved(fn_by_len(n1), fn_by_len(n2), *args,
+                                            warmup=warmup, reps=reps)
+        else:
+            t1 = self.time_callable(fn_by_len(n1), *args, warmup=warmup, reps=reps)
+            t2 = self.time_callable(fn_by_len(n2), *args, warmup=warmup, reps=reps)
         diff = (t2 - t1).scaled(1.0 / (n2 - n1))
         if use_min:
             est = (t2.min_ns - t1.min_ns) / (n2 - n1)
             diff = Measurement(median_ns=est, mad_ns=diff.mad_ns,
                                min_ns=est, n=diff.n)
         return diff
+
+    def _time_interleaved(self, f1: Callable[..., Any], f2: Callable[..., Any], *args: Any,
+                          warmup: int | None = None,
+                          reps: int | None = None) -> tuple[Measurement, Measurement]:
+        """:meth:`time_callable` of two callables, their samples alternated."""
+        warmup = self.warmup if warmup is None else warmup
+        reps = self.reps if reps is None else reps
+        with self.device_ctx():
+            sample = self._sampler()
+            for _ in range(warmup):
+                block(f1(*args))
+                block(f2(*args))
+            s1: list[float] = []
+            s2: list[float] = []
+            for _ in range(reps):
+                s1.append(sample(f1, *args))
+                s2.append(sample(f2, *args))
+        return _summarize(s1), _summarize(s2)
 
     # ----------------------------------------------------------------- units
     def calibrate_clock_hz(self) -> float:

@@ -137,15 +137,27 @@ def prepare_chase(working_set_bytes: int, line_bytes: int = 64,
     plain chase. Both follow ``core.membench.level_rule``: a ring that fits
     L1 walks a lap untimed in each launch, a larger one carries its start
     (the callables chase from, and write back to, ``args[1]``) after an
-    untimed lap (``PreparedKernel.lap``) just before timing."""
+    untimed lap (``PreparedKernel.lap``) just before timing.
+
+    On the CPU the host clock times the whole call, where K3's timed form
+    reads its first clock after the warm lap. So the plain chase walks the
+    warm lap here, once, and the callables chase on from where it ended
+    (``args[1]``): the same ``p`` at the end, and only the timed steps in
+    the timed region. With the lap inside, the 128 steps between the two
+    lengths were 11 % of a 64 KiB ring's call (1088 against 1216 loads),
+    less than the host's slow stretches, and the slope came out
+    non-positive in about one run in eight under a loaded host."""
     device = resolve_device(device)
     ring, start = build_ring(working_set_bytes, line_bytes, device=device)
     space = resolve_memory_space(ring, memory_space)
     warm, carry = level_rule(ring.numel() * 4, line_bytes)
     sandwich = device.type == "cuda"
+    if not sandwich and warm:
+        start = chase(ring, start, steps=warm, memory_space=space)
+    timed_warm = warm if sandwich else 0
 
     def build(n: int) -> Callable:
-        kw = dict(steps=n, warm=warm, memory_space=space)
+        kw = dict(steps=n, warm=timed_warm, memory_space=space)
         if sandwich:
             fn = lambda r, s: chase_timed(r, s, **kw, out=s if carry else None)[1]  # noqa: E731
         else:
@@ -170,7 +182,8 @@ def run_prepared_chase(prepared: PreparedKernel, timer: Timer | None = None,
     ring's untimed lap runs first. On the card the slope of K3's clock
     sandwich, converted at ``clock_hz`` (default: :func:`sm_clock_hz`,
     sampled now), a non-positive slope raising ``NoisySlopeError``; on the
-    CPU :meth:`Timer.slope` around the plain chase."""
+    CPU :meth:`Timer.slope` around the plain chase, the lengths' samples
+    interleaved."""
     timer = timer or Timer()
     if prepared.lap is not None:
         with timer.device_ctx():
@@ -182,8 +195,10 @@ def run_prepared_chase(prepared: PreparedKernel, timer: Timer | None = None,
             *prepared.lens, clock_hz=hz, reps=prepared.reps or 5,
             warmup=max(timer.warmup, 1))
     else:
+        # the two lengths' samples alternate, so that a slow stretch of the
+        # host slows both
         m = timer.slope(prepared.fn_by_len, *prepared.lens, *prepared.args,
-                        reps=prepared.reps)
+                        reps=prepared.reps, interleave=True)
     return m, prepared.memory_space
 
 

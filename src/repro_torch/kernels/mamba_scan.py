@@ -22,6 +22,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.common import check_tensors, stream_handle
 
 STATE_DIMS = (4, 8, 16)  # the kernel's instances of N (mamba_scan.cu)
+# the plain version's steps a block: its factors for them at Jamba's widths
+# (Dm 8192, N 16, batch 8) take 256 MiB
+PLAIN_STEPS = 64
 # the design each dtype runs on the card
 DESIGNS = {torch.float32: "staged tiles, states spread over lanes, D folded in"}
 
@@ -35,18 +38,26 @@ def mamba_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                      B: torch.Tensor, C: torch.Tensor, D: torch.Tensor, *,
                      chunk: int = 128, return_state: bool = False
                      ) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
-    """The scan in plain PyTorch, one time step at a time (a vectorised
-    exp(dt * A) over the whole sequence would hold [Bz, S, Dm, N] floats:
-    1 GiB at a model's widths). ``chunk`` does not change the result."""
+    """The scan in plain PyTorch, one time step at a time. The step's
+    factors exp(dt * A) and (dt * x) * B, and y's h . C, are taken for
+    PLAIN_STEPS steps at once (over the whole sequence they would hold [Bz,
+    S, Dm, N] floats: 1 GiB at a model's widths), so that a step is one
+    multiply and one add, each rounded as ``ref_selective_scan`` rounds it.
+    ``chunk`` does not change the result."""
     bsz, s, dm = x.shape
     dtf = softplus(dt.float())
     dx = dtf * x.float()
     af, bf, cf = A.float(), B.float(), C.float()
     h = torch.zeros(bsz, dm, A.shape[1], dtype=torch.float32, device=x.device)
     y = torch.empty(bsz, s, dm, dtype=torch.float32, device=x.device)
-    for t in range(s):
-        h = torch.exp(dtf[:, t, :, None] * af) * h + dx[:, t, :, None] * bf[:, t, None, :]
-        y[:, t] = (h * cf[:, t, None, :]).sum(dim=-1)
+    for t0 in range(0, s, PLAIN_STEPS):
+        t1 = min(t0 + PLAIN_STEPS, s)
+        decay = torch.exp(dtf[:, t0:t1, :, None] * af)
+        inject = dx[:, t0:t1, :, None] * bf[:, t0:t1, None, :]
+        hs = torch.empty_like(decay)
+        for t in range(t1 - t0):
+            h = torch.add(decay[:, t] * h, inject[:, t], out=hs[:, t])
+        y[:, t0:t1] = (hs * cf[:, t0:t1, None, :]).sum(dim=-1)
     y = y.to(x.dtype) + x * D.to(x.dtype)
     return (y, h) if return_state else y
 

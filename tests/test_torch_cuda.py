@@ -873,3 +873,40 @@ def test_serving_plan_measures_its_four_cells_on_the_card(dev, tmp_path, monkeyp
         assert float(kv["predicted_ns"]) > 0 and 0 < float(kv["coverage"]) <= 1
         assert rec.latency_ns > 0
     assert "== serving predicted vs measured" in out
+
+
+def test_slo_plan_measures_a_point_on_the_card(dev, tmp_path, monkeypatch):
+    """``Plan.slo((50.0,), n_requests=4, n_slots=2)`` on the card: its deps
+    first (the QUICK_OPS' O3 chains cut to (8, 32) here, so a short chain may
+    end as a NoisySlopeError; the three chase rungs), then the point: both
+    sides positive, each request its whole budget, a coverage in (0, 1],
+    the measured side on the host's wall clock (``exec=eager clock=wall``),
+    and no fused kernel launched (serving-tiny runs ``attn_impl="auto"``)."""
+    from repro_torch.api import SloProbe
+    from repro_torch.core.perfmodel import SloPoint, slopoint_from_record
+    from repro_torch.kernels.ops import launch_counts, launches_since
+    from repro_torch.traffic import generate_trace
+    from repro_torch.utils import parse_kv_notes
+
+    monkeypatch.setitem(measure._CHAIN_LENS, "O3", (8, 32))
+    session = Session(db=str(tmp_path / "slo.json"), device=dev,
+                      timer=Timer(warmup=2, reps=10, device=dev))
+    plan = Plan.slo((50.0,), n_requests=4, n_slots=2)
+    before = launch_counts()
+    result = session.run(plan)
+    assert all(r.failure.error_type == "NoisySlopeError" and r.probe.category != "slo"
+               for r in result.failed), [r.failure for r in result.failed]
+    assert not set(launches_since(before)) & {"rmsnorm", "flash_attention", "flash_decode",
+                                              "mamba_scan"}
+    (probe,) = [p for p in plan if isinstance(p, SloProbe)]
+    rec = session.db.get(probe.key(session.env))
+    assert rec.op == "slo.r50.n4s2" and rec.latency_ns > 0
+    kv = parse_kv_notes(rec.notes)
+    assert (kv["exec"], kv["clock"]) == ("eager", "wall") and "cycles_at" in kv
+    pt = slopoint_from_record(rec)
+    for side in (pt.predicted, pt.measured):
+        assert set(side) == set(SloPoint.METRICS) and all(v > 0 for v in side.values())
+    assert 0 < pt.coverage <= 1
+    pred, meas, _ = probe.last_result
+    assert meas.n_tokens == pred.n_tokens == sum(
+        r.max_new for r in generate_trace(probe.trace_config()))

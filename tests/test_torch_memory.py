@@ -162,6 +162,26 @@ def test_inkernel_chase_follows_the_level_rule():
     assert forced.memory_space == "global" and forced.lens == inkernel.CHASE_LENS
 
 
+def test_cpu_chase_walks_the_warm_lap_before_timing_and_alternates_lengths(monkeypatch):
+    """On the CPU the plain chase walks the level rule's warm lap once, when
+    it is prepared, and the timed calls chase on from where it ended: the
+    same p as a call that walks the lap itself; the two lengths' samples
+    alternate."""
+    small = inkernel.prepare_chase(1 << 16, device="cpu")
+    ring, start = small.args
+    walked = chase(ring, torch.zeros(1, dtype=torch.int32), steps=64, warm=small.warm)
+    assert small.warm == 1024 and int(small.fn_by_len(64)(ring, start)[0]) == int(walked[0])
+    order = []
+    real = ik_measure.chase
+    monkeypatch.setattr(ik_measure, "chase",
+                        lambda *a, steps, **kw: order.append((steps, kw.get("warm", 0))) or
+                        real(*a, steps=steps, **kw))
+    again = inkernel.prepare_chase(1 << 16, device="cpu", reps=3)
+    order.clear()
+    inkernel.run_prepared_chase(again, Timer(warmup=1, reps=3, device="cpu"))
+    assert order == [(64, 0), (192, 0)] * 4
+
+
 def test_measure_chase_full_slope_exact_on_virtual_clock(monkeypatch):
     """A chase costing intercept + slope x (warm + steps) on a virtual host
     clock gives exactly the per-load slope (the warm lap cancels), and the

@@ -191,3 +191,24 @@ def test_bound_counts_the_exponentials_on_the_sfu():
     assert ops_s < nbytes / smoke.HBM_BYTES_PER_S
     with_state = smoke.fused_work("mamba_scan", args, {"return_state": True})[0]
     assert with_state == nbytes + 8192 * 16 * 4   # h [1, 8192, 16] written once
+
+
+@pytest.mark.parametrize("b,s,dm,n", [(2, 130, 48, 16), (1, 64, 8, 4), (3, 5, 33, 8)])
+def test_plain_scan_in_blocks_gives_the_step_loops_bits(b, s, dm, n):
+    """The plain version takes its factors PLAIN_STEPS steps at a time; each
+    step still multiplies and adds as a loop over single steps does, so the
+    bits are the loop's (S 130: two whole blocks and a part)."""
+    from repro_torch.kernels.mamba_scan import PLAIN_STEPS, softplus
+
+    _, (x, dt, A, B, C, D) = _inputs(b, s, dm, n, seed=5)
+    dtf = softplus(dt.float())
+    h = torch.zeros(b, dm, n)
+    ys = []
+    for t in range(s):
+        h = torch.exp(dtf[:, t, :, None] * A) * h + (dtf[:, t] * x[:, t])[:, :, None] * \
+            B[:, t, None, :]
+        ys.append((h * C[:, t, None, :]).sum(dim=-1))
+    want = torch.stack(ys, dim=1) + x * D
+    got, h_got = mamba_scan_plain(x, dt, A, B, C, D, return_state=True)
+    assert PLAIN_STEPS == 64
+    assert torch.equal(got, want) and torch.equal(h_got, h)
