@@ -5,20 +5,29 @@ Run from the root of a checkout on a machine with one CUDA card and nvcc:
 
     python3 chip_smoke.py
 
-Before anything else it starts one pool of compile worker processes and
-hands it every O3 chain of the quick plan and then those the table2 plan
-adds, each plan's longest first; they compile while the kernels build and
-are checked, and each plan's session waits only for its own chains. Every
+Before anything else it starts one pool of compile worker processes, with
+the run's compile cache (``core.compile_cache``, under the run's directory
+in ``build/``), and hands it every O3 chain of the quick plan and then
+those the table2 plan adds, in the order that lands the probes one after
+another (``session.warm_tasks``); they compile while the kernels build and
+are checked, each plan's session loads a chain from the module its worker
+compiled; each plan's session (``--serial``) times its probes once all of
+its chains have landed: no timing runs beside a compile of its own. Every
 record made on the card must count ``cycles`` on the SM clock its notes
 name (``cycles_at=sm_clock64@<MHz>``).
 
-Phases, each of which must pass, in this order but for 10-12 (fused,
-serve and archs), which need no compiled chain and run right after phase
-2, while the compile workers build the plans' chains (their host-side
-times, prefill and decode ms, are taken beside those compiles; the card's
-are its own). Phases 13 and 14, serving and slo, run after the pool has
-stopped, on the rows the plans recorded; phase 15 times the kernels after
-them, and K1-K3's launches on the plans are counted in after that:
+Phases, each of which must pass, in this order but for these: 10-12
+(fused, then dataflow, serve and archs) and 6-7 (memory, memory-inkernel,
+on a DB of their own, merged into the run's after table2) need no compiled
+chain and run right after phase 2, while the compile workers build the
+plans' chains (their host-side times, prefill and decode ms, are taken
+beside those compiles; the card's are its own); phase o1 runs in table2's
+wait, once its O1 chains have compiled in this process there. Phase
+cache's two fresh processes import in the pool's wait and run once the
+pool has stopped, before inkernel: this process times nothing while the
+first (which times three rows) runs. Phases 13 and 14, serving and slo, run after the pool has stopped, on the
+rows the plans recorded; phase 15 times the kernels after them, and K1-K3's
+launches on the plans are counted in after that:
 
 1. build the CUDA kernels from ``src/repro_torch/csrc`` (into ``build/``),
    one nvcc per source, all at once, print ptxas's register and spill
@@ -132,7 +141,7 @@ them, and K1-K3's launches on the plans are counted in after that:
    not, bfi and mul24 at O3 and inkernel.bfi are ``transformed`` (their
    failures' messages carry the verdicts of the probes that failed); every
    ``transformed`` verdict is in ``KNOWN_TRANSFORMED``; no row outside
-   special math and the fused rows is ``unaudited``; ``--strict`` exits 1.
+   special math is ``unaudited``; ``--strict`` exits 1.
    It prints every verdict, the counts by status and by family and the
    attribution rows of the ``QUICK_OPS``, and then that the compile pool
    ran only the 130 O3 chains of quick and table2 and the seconds the O1
@@ -247,10 +256,31 @@ them, and K1-K3's launches on the plans are counted in after that:
    256 MiB of other data went through L2 before each launch, print the
    calibrated SM clock, and time op_chain's loop: each step's time with 1
    and with 32 steps to an iteration;
-16. print the ``{"kernels": [...]}`` line (each kernel with the design each
-   dtype runs; K4-K7's launches summed over the fused run and phases
-   serve, archs, serving and slo), the card's name and power limit, and, last,
-   ``{"ok": true, "device": {...}}``.
+16. ``dataflow`` (after fused): ``audit --lint --dataflow`` through the CLI
+   (clean: the fused kernels' signatures linear in their workload, the
+   SASS of the instances their unit workloads launch free of local memory,
+   K1's five ALU chains, K2's add.float32 and K3 in both spaces), then the
+   fused plan's four rows audited from its DB, each ``audited`` with the
+   ``unit_bytes`` of its notes, and a control that must be rejected
+   (causal self-attention: ``transformed`` with a ``nonlinear-*`` cause),
+   within 15 s;
+17. ``cache``: two fresh processes, started after phase kernels, import
+   torch, Inductor and Triton in the pool's wait (no CUDA call) and wait
+   for a start signal each. Once the pool has stopped, the first runs
+   ``characterize --plan quick --opt-levels O3 --ops add,mul,fma.float32
+   --force`` with the run's compile cache (6 hits, 0 compiled; no
+   Inductor miss, no lowering, no Triton compile that missed its cache),
+   while this process times nothing; then the second runs ``audit --db
+   <its DB> --compile-cache <the run's>``, which times nothing, beside
+   inkernel and phase audit, and must give those rows the verdicts of
+   quick's run and of phase audit; the two processes' seconds from their
+   signals together are held to 30 s (their imports printed beside);
+18. print F4's reckoning (the compile pool's start, first chain, end, span,
+   worker-seconds and the tail after it), the ``{"kernels": [...]}`` line
+   (each kernel with the design each dtype runs; K4-K7's launches summed
+   over the fused run and phases serve, archs, serving and slo), the card's
+   name and power limit, and, last, ``{"ok": true, "device": {...}}``; a
+   wall-time bound missed (phases dataflow and cache) fails the run here.
 
 It exits non-zero, printing no result, when no CUDA card is visible or the
 repository's sources are missing.
@@ -392,6 +422,19 @@ def designs(name: str) -> dict[str, str]:
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+# wall-time bounds missed: the run goes on to its end, so that every phase's
+# figures are printed, and then fails (main)
+MISSED: list[str] = []
+
+
+def bound(label: str, wall: float, limit: float) -> None:
+    """Print a phase's wall time against its bound; a miss fails the run at
+    its end."""
+    print(f"{label}: wall {wall:.2f} s against the bound {limit:.0f} s")
+    if wall > limit:
+        MISSED.append(f"{label}: {wall:.2f} s over its bound of {limit:.0f} s")
 
 
 def phase(name: str, t0: float) -> None:
@@ -922,16 +965,18 @@ def check_fused_kernels(dev: torch.device, cases: dict) -> tuple[dict, dict]:
     return err, jamba
 
 
-def run_quick(dev: torch.device, db_path: str) -> dict[str, int]:
-    """Phase 3: the quick plan through the CLI into ``db_path``; returns each
-    kernel's launches during that run."""
+def run_quick(dev: torch.device, db_path: str, cache_dir: Path) -> dict[str, int]:
+    """Phase 3: the quick plan through the CLI into ``db_path``, with the
+    run's compile cache and ``--serial`` (its probes are timed once all of
+    its chains have landed); returns each kernel's launches during that
+    run."""
     from repro_torch.api.cli import main as cli_main
     from repro_torch.api.plan import named_plan
     from repro_torch.core.latency_db import LatencyDB, current_environment
 
     zero_counts()
     rc = cli_main(["characterize", "--plan", "quick", "--db", db_path, "--table",
-                       "--audit"])
+                   "--audit", "--compile-cache", str(cache_dir), "--serial"])
     launches = read_counts()
     if rc != 0:
         fail(f"characterize --plan quick exited {rc}")
@@ -1020,9 +1065,13 @@ def per_step_sass(results: dict, name: str, lens: tuple[int, int]) -> tuple[floa
     return sum(b.values()) / steps - sum(a.values()) / steps, per
 
 
-def run_table2(dev: torch.device, db_path: str, pool) -> dict[str, int]:
-    """Phase 4: the table2 plan through the CLI on the quick plan's DB (its
-    32 probes shared with quick are cache hits); returns each kernel's
+def run_table2(dev: torch.device, db_path: str, pool, cache_dir: Path) -> dict[str, int]:
+    """Phase 4: the table2 plan through the CLI on the quick plan's DB, with
+    the run's compile cache and ``--serial`` (its 32 probes shared with
+    quick are cache hits; each probe is prepared as soon as its chains have
+    landed and timed once they all have, after the pool; this process's own
+    tasks run in its waits: phase o1 among them, which counts its own
+    launches from 0 and puts table2's back after); returns each kernel's
     launches during that run. Every probe of the plan must end with a
     record timed by CUDA events, K2 must be launched, and each half
     precision row's O3 chain must equal its eager chain bit for bit at both
@@ -1034,8 +1083,10 @@ def run_table2(dev: torch.device, db_path: str, pool) -> dict[str, int]:
     from repro_torch.core.latency_db import LatencyDB, current_environment
 
     zero_counts()
+    # --serial: its rows are timed once every chain has landed, after the
+    # pool (tools/wait_study.py missed its bound in the pool's wait, PERF.md)
     rc = cli_main(["characterize", "--plan", "table2", "--db", db_path, "--table",
-                       "--audit"])
+                   "--audit", "--compile-cache", str(cache_dir), "--serial"])
     launches = read_counts()
     db = LatencyDB(db_path)
     env = current_environment(dev)
@@ -1421,6 +1472,22 @@ def run_o1(dev: torch.device, db_path: str) -> dict[str, int]:
     return launches
 
 
+def run_o1_in_wait(dev: torch.device, db_path: str, box: dict) -> None:
+    """Phase o1 as a task of this process in table2's wait (``CompilePool.
+    local``): table2's launch counts so far are put aside, :func:`run_o1`
+    counts its own from 0 (into ``box``), and table2's are put back. A
+    failed check stops the run (``SystemExit`` passes through the pool's
+    task loop)."""
+    from repro_torch.kernels.ops import add_launches
+
+    t0 = time.perf_counter()
+    table2 = read_counts()
+    box["launches"] = run_o1(dev, db_path)
+    zero_counts()
+    add_launches(table2)
+    phase("o1", t0)
+
+
 # transformed verdicts the audit expects on the card, each explained in
 # PERF.md with its PTX and SASS evidence
 KNOWN_TRANSFORMED = {
@@ -1434,7 +1501,7 @@ KNOWN_TRANSFORMED = {
 MUST_TRANSFORM = (("not", "O3"), ("bfi", "O3"), ("mul24", "O3"), ("inkernel.bfi", "O3"))
 
 
-def run_audit(dev: torch.device, db_path: str, attribution: str) -> None:
+def run_audit(dev: torch.device, db_path: str, attribution: str) -> dict[tuple[str, str], str]:
     """Phase audit: ``audit --db <the run's DB> --lint --lowering
     --attribution <file> --strict`` in this process (the O3 chains' PTX and
     SASS are those the compile workers handed back). Prints each verdict,
@@ -1444,8 +1511,9 @@ def run_audit(dev: torch.device, db_path: str, attribution: str) -> None:
     ``audit=``, when not, bfi, mul24 at O3 or inkernel.bfi is not
     ``transformed`` with a cause from ``transforms.CAUSES``, when a
     ``transformed`` verdict is not in ``KNOWN_TRANSFORMED``, when a row
-    outside special math and the fused rows is ``unaudited``, or when the
-    strict exit code is not 1 while transformed rows exist."""
+    outside special math is ``unaudited``, or when the strict exit code is
+    not 1 while transformed rows exist. Returns each verdict's note by
+    ``(op, opt_level)`` (phase cache holds its rows to them)."""
     from repro_torch.api.cli import main as cli_main
     from repro_torch.audit.chain_check import ChainVerdict, _verdict_from_note
     from repro_torch.audit.transforms import CAUSES
@@ -1483,7 +1551,7 @@ def run_audit(dev: torch.device, db_path: str, attribution: str) -> None:
                 fail(f"{op}@{level}: cause {v.cause!r} is not in transforms.CAUSES")
             if (op, level) not in KNOWN_TRANSFORMED:
                 fail(f"{op}@{level} is transformed ({v.cause}) and not in KNOWN_TRANSFORMED")
-        if v.status == "unaudited" and not op.startswith("inkernel.fused."):
+        if v.status == "unaudited":
             row = op.removeprefix("inkernel.")
             try:
                 special = spec_by_name(row).category == "special_math"
@@ -1507,6 +1575,238 @@ def run_audit(dev: torch.device, db_path: str, attribution: str) -> None:
     for ln in Path(attribution).read_text().splitlines():
         if ln.startswith("| `"):
             print(f"attribution: {ln}")
+    return {key: v.note() for key, (v, _) in verdicts.items()}
+
+# ------------------------------------------------------------ dataflow, cache
+DATAFLOW_BOUND_S = 15.0   # PERF.md section 2, written before its first run
+# PERF.md section 2: the two fresh processes of phase cache, together, from
+# their start signals
+CACHE_BOUND_S = 30.0
+CACHE_OPS = ("add", "mul", "fma.float32")
+
+
+def run_dataflow(dev: torch.device, fused_db) -> None:
+    """Phase dataflow, in the pool's wait: ``audit --lint --dataflow``
+    through the CLI (the four fused kernels' signatures and the SASS of the
+    instances their unit workloads launch, K1's five ALU chains, K2's
+    ``add.float32`` and K3 in both spaces: clean), then the fused plan's
+    four rows audited again from that run's DB: each ``audited`` with the
+    ``unit_bytes`` of its notes (a failed rmsnorm row with the rule's,
+    ``inkernel.measure.unit_bytes``). Controls: flash_attention's unit
+    workload made causal stays linear (its one query block sees every key,
+    as in the JAX package), so the control that must be ``transformed``
+    with a ``nonlinear-*`` cause is the causal one whose query grows with
+    its keys (causal self-attention: the blocks it skips grow faster than
+    the units)."""
+    from repro_torch.api.cli import main as cli_main
+    from repro_torch.audit import audit_target, dataflow
+    from repro_torch.core.latency_db import current_environment
+    from repro_torch.inkernel import FUSED_KERNELS
+    from repro_torch.inkernel.measure import unit_bytes
+    from repro_torch.utils import parse_kv_notes
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["audit", "--lint", "--dataflow"])
+    out = buf.getvalue()
+    print("".join(f"dataflow: {ln}\n" for ln in out.splitlines()), end="")
+    if rc != 0 or "lints clean (mapping+guards+dataflow)" not in out:
+        fail(f"audit --lint --dataflow exited {rc}: {out[-500:]}")
+    env = current_environment(dev)
+    for name in FUSED_KERNELS:
+        op = f"inkernel.fused.{name}"
+        rec = next((r for r in fused_db.records() if r.op == op), None)
+        v = audit_target(op, "O3", env=env)
+        want = (int(parse_kv_notes(rec.notes)["unit_bytes"]) if rec is not None
+                else unit_bytes(name))
+        got = parse_kv_notes(v.detail).get("unit_bytes")
+        print(f"dataflow: {op}@O3 {v.note()} ({v.detail}); its notes' unit_bytes {want}; "
+              f"instances {dataflow.fused_instances(name)}")
+        if v.status != "audited" or got is None or int(got) != want:
+            fail(f"dataflow: {op}: {v} (unit_bytes {got}, its notes {want})")
+    same = dataflow.audit_fused("flash_attention", overrides={"causal": True}, env=env)
+    print(f"dataflow: flash_attention's unit workload made causal: {same.note()} "
+          f"({same.detail}): one query block at the end of the keys sees every block")
+    control = dataflow.audit_fused("flash_attention", overrides={"causal": True},
+                                   query_grows=True, env=env)
+    print(f"dataflow: control, causal self-attention (queries as long as the keys): "
+          f"{control.note()} ({control.detail})")
+    if control.status != "transformed" or not control.cause.startswith("nonlinear-"):
+        fail(f"dataflow: the causal self-attention control was not rejected: {control}")
+    bound("dataflow", time.perf_counter() - t0, DATAFLOW_BOUND_S)
+
+
+# one fresh process of phase cache: it imports what the port's CLI and a
+# compiled chain's load import (torch, Inductor, Triton; no CUDA call) and
+# hashes torch's sources once (Inductor's ``torch_key``, no cache's), then
+# waits for a line on its standard input: at that start signal it runs the
+# CLI (``repro_torch.api.cli.main``, what ``python -m repro_torch`` runs) on
+# its arguments; at the end of its input without one it exits. It writes its
+# import seconds, its seconds from the signal and the CLI's exit code
+CACHE_PROCESS = """
+import json, sys, time
+t0 = time.perf_counter()
+import torch
+import torch._inductor.async_compile, torch._inductor.codecache
+import torch._inductor.runtime.triton_heuristics
+from repro_torch.api import cli
+import repro_torch.audit  # noqa: F401
+try:
+    import triton  # noqa: F401
+except ImportError:
+    pass
+getattr(torch._inductor.codecache, "torch_key", lambda: None)()
+imports = time.perf_counter() - t0
+if not sys.stdin.readline():
+    sys.exit(0)
+t1 = time.perf_counter()
+rc = cli.main(sys.argv[2:])
+sys.stdout.flush()
+sys.stderr.flush()
+open(sys.argv[1], "w").write(json.dumps({"args": sys.argv[2:], "rc": rc, "imports": imports,
+                                         "s": time.perf_counter() - t1,
+                                         "life": time.perf_counter() - t0}))
+"""
+
+
+def start_fresh(args: list[str], scratch: Path, name: str) -> dict:
+    """One fresh process of phase cache (``CACHE_PROCESS``), started now at
+    the compile workers' priority: it imports, then waits for
+    :func:`signal_fresh`; its output and report go under ``scratch``."""
+    import os
+
+    from repro_torch.api.session import WORKER_NICE
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    with open(scratch / f"{name}.out", "w") as out, open(scratch / f"{name}.err", "w") as err:
+        proc = subprocess.Popen([sys.executable, "-c", CACHE_PROCESS,
+                                 str(scratch / f"{name}.json"), *args],
+                                stdin=subprocess.PIPE, stdout=out, stderr=err, text=True,
+                                env=env, cwd=ROOT, preexec_fn=lambda: os.nice(WORKER_NICE))
+    return {"proc": proc, "path": scratch / name, "args": args}
+
+
+def signal_fresh(job: dict) -> None:
+    """Start a process of :func:`start_fresh` on its CLI run (one that has
+    exited already is reported by :func:`wait_fresh`)."""
+    try:
+        job["proc"].stdin.write("go\n")
+        job["proc"].stdin.flush()
+    except BrokenPipeError:
+        pass
+
+
+def wait_fresh(job: dict) -> dict:
+    """Wait for a process of :func:`start_fresh`; its report, with what it
+    printed. Fails if it or its CLI run exited other than 0."""
+    proc, path = job["proc"], job["path"]
+    proc.stdin.close()
+    rc = proc.wait(timeout=600)
+    report = path.with_suffix(".json")
+    stdout, stderr = path.with_suffix(".out").read_text(), path.with_suffix(".err").read_text()
+    if rc != 0 or not report.exists():
+        fail(f"cache: the fresh process for {job['args'][0]} exited {rc}: {stderr[-1500:]}")
+    r = {**json.loads(report.read_text()), "stdout": stdout, "stderr": stderr}
+    print(f"cache: python -m repro_torch {r['args'][0]}: {r['s']:.2f} s from its start "
+          f"signal (exit {r['rc']}); the process's imports {r['imports']:.2f} s before it, in "
+          f"the pool's wait; its whole life {r['life']:.2f} s")
+    for ln in stderr.splitlines():
+        if re.search(r"\] (compiled|prepared|timed) ", ln):
+            print(f"cache:   {ln}")
+    if r["rc"]:
+        fail(f"cache: python -m repro_torch {' '.join(r['args'])} exited {r['rc']}: "
+             f"{stdout[-800:]} {stderr[-1500:]}")
+    return r
+
+
+def start_cache(cache_dir: Path, scratch: Path) -> dict:
+    """Phase cache's two fresh processes, started in the pool's wait to
+    import there: ``characterize --plan quick --opt-levels O3 --ops
+    add,mul,fma.float32 --force`` with the run's compile cache, into a DB of
+    its own, and ``audit --db <that DB> --compile-cache <dir>``. Neither
+    touches the card before its start signal."""
+    warm_db = scratch / "cache_db.json"
+    return {"warm_db": warm_db, "characterize": start_fresh(
+        ["characterize", "--plan", "quick", "--opt-levels", "O3", "--ops", ",".join(CACHE_OPS),
+         "--force", "--db", str(warm_db), "--compile-cache", str(cache_dir)],
+        scratch, "cache_characterize"), "audit": start_fresh(
+        ["audit", "--db", str(warm_db), "--compile-cache", str(cache_dir)],
+        scratch, "cache_audit")}
+
+
+def cache_characterize(job: dict) -> None:
+    """Phase cache's first run, once the pool has stopped and table2 is
+    timed: the characterize process gets its start signal. It times three
+    rows on the card, so this process times nothing until
+    :func:`cache_audit` has waited for it."""
+    signal_fresh(job["characterize"])
+
+
+def cache_audit(job: dict) -> None:
+    """Wait for phase cache's characterize, then signal its audit, which
+    times nothing and runs while this process goes on."""
+    job["characterize"] = wait_fresh(job["characterize"])
+    signal_fresh(job["audit"])
+
+
+def finish_cache(dev: torch.device, db_path: str, job: dict, pool,
+                 verdicts: dict[tuple[str, str], str]) -> None:
+    """Phase cache's checks, once its second process is done. The first ran
+    ``characterize --plan quick --opt-levels O3 --ops add,mul,fma.float32
+    --force`` with the run's compile cache, into a DB of its own. Its
+    summary must read ``0 compiled`` and a hit for each of the rows' six
+    chains; Inductor's counters in it no graph or AOTAutograd miss and no
+    lowering, and Triton's compiles (its compilation listener,
+    ``compile_cache.count_triton_compiles``) hits of its cache only. The
+    second ran ``audit --db <that DB> --compile-cache <dir>``: it must give
+    those rows the verdicts quick's run and phase audit (``verdicts``) gave
+    them, read from the cache's entries. Prints each process's seconds, the
+    warm process's prepare seconds beside the cold compile seconds of the
+    same chains in the workers, and the two processes' seconds from their
+    start signals against their bound."""
+    from repro_torch.audit.chain_check import _verdict_from_note
+    from repro_torch.core.chains import spec_by_name
+    from repro_torch.core.latency_db import LatencyDB, current_environment
+
+    runs = [job["characterize"], wait_fresh(job["audit"])]
+    out = runs[0]["stdout"]
+    print("".join(f"cache: {ln}\n" for ln in out.splitlines()
+                  if "compile cache" in ln or "measured" in ln), end="")
+    chains_n = 2 * len(CACHE_OPS)
+    m = re.search(r"compile cache: (\d+) hits, (\d+) compiled", out)
+    if not m or (int(m[1]), int(m[2])) != (chains_n, 0):
+        fail(f"cache: the warm process did not load its {chains_n} chains from the cache: "
+             f"{m[0] if m else out[-400:]}")
+    line = re.search(r"inductor (\{.*?\}); lowering ([\d.]+) s; prepare ([\d.]+) s", out)
+    counts = json.loads(line[1]) if line else None
+    if (counts is None or counts.get("inductor.fxgraph_cache_miss", 0)
+            or counts.get("aot_autograd.autograd_cache_miss", 0) or float(line[2]) > 0.0
+            or counts.get("triton.compile_cache_miss", 1)):
+        fail(f"cache: the warm process compiled: {line[0] if line else out[-400:]}")
+    cold = sum(fut.result()["s"] for (_, _, name, level, n, _), fut in pool.futures.items()
+               if name in CACHE_OPS and fut.done() and fut.exception() is None)
+    print(f"cache: warm process: {m[1]} hits, 0 compiled, prepare {float(line[3]):.3f} s for "
+          f"the {chains_n} chains (no lowering; Triton's compiles: "
+          f"{counts.get('triton.compile_cache_hit')} hits of its cache, 0 misses); their "
+          f"cold compiles in the workers {cold:.1f} s")
+    print("".join(f"cache: audit: {ln}\n" for ln in runs[1]["stdout"].splitlines()), end="")
+    env = current_environment(dev)
+    run, warm = LatencyDB(db_path), LatencyDB(str(job["warm_db"]))
+    for name in CACHE_OPS:
+        key = (env["device_kind"], env["backend"], env["jax_version"], "O3", name,
+               spec_by_name(name).dtype)
+        want = _verdict_from_note(name, "O3", run.get(key).notes)
+        got = _verdict_from_note(name, "O3", warm.get(key).notes)
+        print(f"cache: {name}@O3: {got.note() if got else None} from the cache's entries; "
+              f"quick's run {want.note() if want else None}; phase audit "
+              f"{verdicts.get((name, 'O3'))}")
+        if (got is None or want is None or got.note() != want.note()
+                or verdicts.get((name, "O3")) != got.note()):
+            fail(f"cache: {name}@O3: the cache-backed audit gave {got}, the run {want}, "
+                 f"phase audit {verdicts.get((name, 'O3'))}")
+    bound("cache: the two fresh processes from their start signals", sum(r["s"] for r in runs),
+          CACHE_BOUND_S)
 
 
 def probe_twin(probe, twins):
@@ -3428,6 +3728,147 @@ def loop_study(dev: torch.device, lens: tuple[int, int] = (64, 512),
               + f"; loop {loop_ns:.3f} ns per iteration")
 
 
+def run_plans(dev: torch.device, tmp: Path, cache_dir: Path, pool, tasks: list) -> dict:
+    """Phases 1-12 and dataflow, cache, o1 and audit, with the compile pool
+    open: the build and the kernels' checks, then the phases that need no
+    compiled chain (fused, dataflow, serve, archs, memory, memory-inkernel)
+    while the workers compile, then quick and table2 (each probe prepared
+    as its chains land, timed once all of the plan's have; table2's after
+    the pool), with phase o1 run in table2's wait, after its O1 chains
+    compiled there; then phase cache's fresh processes, the first alone on
+    the card, the second beside inkernel and the audit. Returns what the later phases need: each
+    phase's launches by its name, the run's DB path (``db_path``), the
+    fused plan's DB and the kernels' checks."""
+    from repro_torch.core import measure
+    from repro_torch.core.latency_db import LatencyDB
+    from repro_torch.kernels import _build
+
+    out = {}
+    t0 = time.perf_counter()
+    build = _build.build()
+    print(f"library: {build} ({', '.join(f'lib{k}.so' for k in _build.KERNELS)})")
+    for line in (build / "build.log").read_text().splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry function" in line:
+            print(f"  ptxas: {line.strip()}")
+        elif line.startswith("== "):  # a source and its nvcc's return code
+            print(f"  nvcc: {line[3:]}")
+    timed_sass = sass_checks(build)
+    spill_checks(build)
+    phase("build", t0)
+
+    t0 = time.perf_counter()
+    out["err"] = check_kernels(dev)
+    out["cases"] = jamba_inputs(dev)
+    out["fused_err"], out["jamba"] = check_fused_kernels(dev, out["cases"])
+    phase("kernels", t0)
+
+    # phase cache's two fresh processes import now, in the pool's wait, and
+    # wait for their start signals (after table2)
+    cache_job = start_cache(cache_dir, tmp)
+
+    # the phases that need no compiled chain run while the workers compile:
+    # the card is idle there, and after the pool only the plans' own work is
+    # left. Their host-side times (prefill and decode ms) are taken beside
+    # the workers; the kernels' times are not
+    t0 = time.perf_counter()
+    out["fused"], out["fused_db"] = run_fused(dev)
+    phase("fused", t0)
+
+    t0 = time.perf_counter()
+    run_dataflow(dev, out["fused_db"])
+    phase("dataflow", t0)
+
+    t0 = time.perf_counter()
+    out["serve"] = run_serve(dev)
+    phase("serve", t0)
+
+    t0 = time.perf_counter()
+    out["archs"], out["archs_cases"] = run_archs(dev)
+    phase("archs", t0)
+
+    # the memory plans need K3 alone: on a DB of their own, merged into the
+    # run's once table2 is done
+    mem_db = str(tmp / "memory_db.json")
+    t0 = time.perf_counter()
+    out["memory"] = run_memory(dev, mem_db)
+    phase("memory", t0)
+
+    t0 = time.perf_counter()
+    out["memory-inkernel"] = run_memory_inkernel(dev, mem_db)
+    phase("memory-inkernel", t0)
+
+    db_path = str(tmp / "db.json")  # table2 runs on quick's DB
+    t0 = time.perf_counter()
+    out["quick"] = run_quick(dev, db_path, cache_dir)
+    phase("quick", t0)
+
+    # phase o1 runs as this process's task in table2's wait, once its O1
+    # chains have compiled there (quick's wait may have compiled some)
+    o1 = {}
+    first_lint = sum(t[0] is measure.prepare_o1_chain for t in pool.local)
+    pool.local.insert(first_lint, (run_o1_in_wait, (dev, db_path, o1)))
+    t0 = time.perf_counter()
+    out["table2"] = run_table2(dev, db_path, pool, cache_dir)
+    phase("table2", t0)
+    while "launches" not in o1:  # table2's waits were too short for it
+        if not any(fn is run_o1_in_wait for fn, _ in pool.local):
+            fail("phase o1 did not run (its task failed: see the log)")
+        pool.run_local()
+    out["o1"] = o1["launches"]
+
+    # phase cache, now that the pool has stopped: its first fresh process
+    # times rows on the card, so this process only runs what the sessions'
+    # waits left of its own tasks (CPU chains) until it is done; its second
+    # (the audit, which times nothing) runs beside inkernel and phase audit.
+    # Both imported in the pool's wait
+    t_cache = time.perf_counter()
+    cache_characterize(cache_job)
+    LatencyDB(db_path).merge(LatencyDB(mem_db)).save()
+    while pool.local:  # what the sessions' waits left of this process's tasks
+        pool.run_local()
+    cache_audit(cache_job)
+    print(f"cache: this process waited {time.perf_counter() - t_cache:.2f} s for the "
+          "warm characterize (its own leftover tasks run meanwhile)")
+
+    t0 = time.perf_counter()
+    out["inkernel"] = run_inkernel(dev, db_path, timed_sass)
+    phase("inkernel", t0)
+
+    t0 = time.perf_counter()
+    verdicts = run_audit(dev, db_path, str(tmp / "attribution.md"))
+    phase("audit", t0)
+
+    t0 = time.perf_counter()
+    finish_cache(dev, db_path, cache_job, pool, verdicts)
+    phase("cache", t0)
+    chains_o3 = {(fn.__module__, fn.__qualname__, *args) for fn, args in tasks}
+    if set(pool.futures) != chains_o3 or pool.local:
+        fail(f"compile pool: {len(pool.futures)} tasks against the {len(chains_o3)} O3 chains "
+             f"of quick and table2; {len(pool.local)} local tasks never ran")
+    print(f"compile pool: {len(pool.futures)} tasks, the O3 chains of quick and table2 "
+          f"(none for O1 or the audit); this process's own tasks (the O1 chains, phase o1, "
+          f"the lint's short chains) took {pool.local_s:.2f} s while the workers compiled")
+    out["db_path"] = db_path
+    return out
+
+
+def reckoning(pool, t_wall: float, t_end: float) -> None:
+    """F4's line: when the compile pool started and ended (its last chain
+    done) in the run, its span and worker-seconds, and the tail: the
+    script's end less the pool's end."""
+    done = [f.result() for f in pool.futures.values()
+            if f.done() and not f.cancelled() and f.exception() is None]
+    first = min(r["started_at"] for r in done)
+    end = max(r["done_at"] for r in done)
+    busy = sum(r["done_at"] - r["started_at"] for r in done)
+    span = end - pool.started_at
+    print(f"compile pool: started {pool.started_at - t_wall:.1f} s into the run, first chain "
+          f"at {first - t_wall:.1f} s, ended {end - t_wall:.1f} s; span {span:.1f} s, "
+          f"{busy:.1f} worker-seconds ({pool.workers} workers), span / worker-seconds "
+          f"{span / busy:.4f}; tail {t_end - end:.1f} s (the script's end less the pool's "
+          f"end); start + tail {pool.started_at - t_wall + t_end - end:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -3438,8 +3879,8 @@ def main() -> int:
     from repro_torch.api.session import CompilePool, compile_workers_for, warm_tasks
     from repro_torch.audit import artifacts, chain_check, lint
     from repro_torch.core import chains, measure
+    from repro_torch.core.compile_cache import CompileCache
     from repro_torch.core.latency_db import LatencyDB
-    from repro_torch.kernels import _build
     from repro_torch.kernels.common import resolve_device
 
     t_all, t_wall = time.perf_counter(), time.time()
@@ -3447,98 +3888,34 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(dev)}")
 
-    # one compile pool for the script, started before the build: the O3
-    # chains of quick, then those table2 adds, each plan's longest first
+    # one compile pool for the script, started before the build, with the
+    # run's compile cache: the O3 chains of quick, then those table2 adds,
+    # in the order that lands the probes one after another (warm_tasks)
     quick, table2 = named_plan("quick"), named_plan("table2")
-    tasks = warm_tasks(quick, dev) + warm_tasks(table2, dev)
+    probes = list(quick) + list(table2)
+    workers = compile_workers_for(dev, len(warm_tasks(probes, dev)))
+    tasks = warm_tasks(probes, dev, workers)
     (ROOT / "build").mkdir(exist_ok=True)
-    with CompilePool(compile_workers_for(dev, len(tasks)),
-                     runner=artifacts.warm_and_read) as pool, \
-            tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-        pool.submit(tasks)
-        # the o1 phase's chains compile here while quick and table2 wait
-        pool.local += [(measure.prepare_o1_chain, (name, n, str(dev)))
-                       for name in QUICK_OPS for n in reversed(measure._CHAIN_LENS["O1"])]
-        # and the short CPU chains of the audit's lowering lint, whose graphs it
-        # reads (chain_check.o1_graph_ops keeps them)
-        pool.local += [(chain_check.o1_graph_ops,
-                        (spec, min(lint.LINT_LEN, spec.max_chain or lint.LINT_LEN)))
-                       for spec in chains.default_registry()]
-        t0 = time.perf_counter()
-        build = _build.build()
-        print(f"library: {build} ({', '.join(f'lib{k}.so' for k in _build.KERNELS)})")
-        for line in (build / "build.log").read_text().splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry function" in line:
-                print(f"  ptxas: {line.strip()}")
-            elif line.startswith("== "):  # a source and its nvcc's return code
-                print(f"  nvcc: {line[3:]}")
-        timed_sass = sass_checks(build)
-        spill_checks(build)
-        phase("build", t0)
-
-        t0 = time.perf_counter()
-        err = check_kernels(dev)
-        cases = jamba_inputs(dev)
-        fused_err, jamba = check_fused_kernels(dev, cases)
-        phase("kernels", t0)
-
-        # the phases that need no compiled chain run while the workers
-        # compile: the card is idle there, and after the pool only the
-        # plans' own work is left. Their host-side times (prefill and decode
-        # ms) are taken beside the workers; the kernels' times are not
-        t0 = time.perf_counter()
-        fused_launches, fused_db = run_fused(dev)
-        phase("fused", t0)
-
-        t0 = time.perf_counter()
-        serve_launches = run_serve(dev)
-        phase("serve", t0)
-
-        t0 = time.perf_counter()
-        archs_launches, archs_cases = run_archs(dev)
-        phase("archs", t0)
-
-        db_path = str(Path(tmp) / "db.json")  # table2 runs on quick's DB
-        t0 = time.perf_counter()
-        launches = run_quick(dev, db_path)
-        phase("quick", t0)
-
-        t0 = time.perf_counter()
-        table2_launches = run_table2(dev, db_path, pool)
-        phase("table2", t0)
-
-        t0 = time.perf_counter()
-        inkernel_launches = run_inkernel(dev, db_path, timed_sass)
-        phase("inkernel", t0)
-
-        t0 = time.perf_counter()
-        memory_launches = run_memory(dev, db_path)
-        phase("memory", t0)
-
-        t0 = time.perf_counter()
-        memory_inkernel_launches = run_memory_inkernel(dev, db_path)
-        phase("memory-inkernel", t0)
-
-        t0 = time.perf_counter()
-        o1_launches = run_o1(dev, db_path)
-        phase("o1", t0)
-
-        t0 = time.perf_counter()
-        while pool.local:  # what the sessions' waits left of this process's tasks
-            pool.run_local()
-        run_audit(dev, db_path, str(Path(tmp) / "attribution.md"))
-        phase("audit", t0)
-        chains_o3 = {(fn.__module__, fn.__qualname__, *args) for fn, args in tasks}
-        if set(pool.futures) != chains_o3 or pool.local:
-            fail(f"compile pool: {len(pool.futures)} tasks against the {len(chains_o3)} O3 chains "
-                 f"of quick and table2; {len(pool.local)} local tasks never ran")
-        print(f"compile pool: {len(pool.futures)} tasks, the O3 chains of quick and table2 "
-              f"(none for O1 or the audit); the O1 chains took {pool.local_s:.2f} s in this "
-              "process while the workers compiled")
-        run_db = LatencyDB(db_path)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        cache_dir = Path(tmp) / "compile_cache"
+        cache = CompileCache(str(cache_dir))
+        cache.use()
+        with CompilePool(workers, runner=artifacts.warm_and_read, cache=cache) as pool:
+            pool.submit(tasks)
+            # the o1 phase's chains compile here while quick waits, and then
+            # the short CPU chains of the audit's lowering lint, whose graphs
+            # it reads (chain_check.o1_graph_ops keeps them)
+            pool.local += [(measure.prepare_o1_chain, (name, n, str(dev)))
+                           for name in QUICK_OPS for n in reversed(measure._CHAIN_LENS["O1"])]
+            pool.local += [(chain_check.o1_graph_ops,
+                            (spec, min(lint.LINT_LEN, spec.max_chain or lint.LINT_LEN)))
+                           for spec in chains.default_registry()]
+            results = run_plans(dev, Path(tmp), cache_dir, pool, tasks)
+        run_db = LatencyDB(results.pop("db_path"))
 
     # priced from the rows the plans recorded, so after them, and timed
     # after the pool has stopped
+    fused_db = results.pop("fused_db")
     t0 = time.perf_counter()
     serving_launches = run_serving(dev, run_db, fused_db)
     phase("serving", t0)
@@ -3555,17 +3932,20 @@ def main() -> int:
     rungs = {"inkernel.mem.65536 (smem)": inkernel.prepare_chase(64 << 10, device=dev),
              "inkernel.mem.67108864": inkernel.prepare_chase(64 << 20, device=dev)}
     rungs["inkernel.mem.67108864"].lap()
-    kernels = time_kernels(dev, err, big=rungs["inkernel.mem.67108864"])
-    kernels += time_fused(dev, fused_err, jamba, cases, fused_launches, serve_launches,
-                          archs_launches, archs_cases, serving_launches, slo_launches)
+    r = results
+    kernels = time_kernels(dev, r["err"], big=rungs["inkernel.mem.67108864"])
+    kernels += time_fused(dev, r["fused_err"], r["jamba"], r["cases"], r["fused"], r["serve"],
+                          r["archs"], r["archs_cases"], serving_launches, slo_launches)
     clock_study(dev, rungs=rungs)
     loop_study(dev)
-    del rungs, archs_cases
+    del rungs, r["archs_cases"]
     phase("timing", t0)
-    count_plan_launches(kernels, launches, table2_launches, inkernel_launches,
-                        memory_launches, memory_inkernel_launches, o1_launches)
+    count_plan_launches(kernels, r["quick"], r["table2"], r["inkernel"], r["memory"],
+                        r["memory-inkernel"], r["o1"])
     phase("total", t_all)
-    print(f"compile pool: started {pool.started_at - t_wall:.1f} s into the run")
+    reckoning(pool, t_wall, time.time())
+    if MISSED:
+        fail("; ".join(MISSED))
 
     print(json.dumps({"kernels": kernels}))
     print(card())

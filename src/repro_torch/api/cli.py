@@ -25,12 +25,16 @@ pairs ``inkernel.mem.<N>`` with ``mem.chase.ws<N>``; on a DB that holds the
 memory plan's rows those twins are cache hits.
 
 ``python -m repro_torch audit --db DB [--lint [--lowering] [--zoo [--archs
-A,B]]] [--attribution PATH] [--strict]`` judges the code behind every
-record of a DB (PTX and SASS on the card, the dispatched ops at O0,
-AOTAutograd's graph at O1) and writes each verdict into the record's notes
+A,B]] [--dataflow]] [--compile-cache DIR] [--attribution PATH] [--strict]``
+judges the code behind every record of a DB (PTX and SASS on the card, the
+dispatched ops at O0, AOTAutograd's graph at O1, the fused rows' signatures
+and instances) and writes each verdict into the record's notes
 (``audit=...``); ``--lint`` runs the static lints (the pricing table's
 mapping, guard identity; ``--zoo`` also the op records of the ten
-architectures' smoke steps, on the CPU);
+architectures' smoke steps, on the CPU; ``--dataflow`` every kernel
+family's certificate, as ``audit.lint.lint_dataflow`` states it);
+``--compile-cache DIR`` reads an O3 chain's device code from the cache a
+characterize run kept, so a separate process audits without compiling;
 ``characterize --audit`` attaches the verdicts as the records are measured.
 On the CPU the O0 and O1 rows get their verdicts and the O3 rows
 ``unaudited:no-device-code``. Exit codes: 0 clean (or advisory-only
@@ -63,8 +67,15 @@ twins are cache hits.
 It runs on ``cuda:0`` unless ``--device`` names another device; where the
 card is asked for and there is none it exits with an error, it does not run
 on the CPU. Scheduling is cache-aware: probes already in the DB for this
-(device, backend, torch build) are cache hits, and partial results are
-flushed after every probe, so re-running an interrupted command resumes it.
+(device, backend, torch build) are cache hits (``--resume``, the default;
+``--force`` re-measures), and partial results are flushed after every
+probe, so re-running an interrupted command resumes it. On the card every
+probe is prepared before any is timed, so no timing runs beside the compile
+workers (``--serial``, there the default); on the CPU each probe is timed as
+soon as it and the probes before it are prepared, unless ``--serial``.
+``--compile-cache DIR`` keeps Inductor's and Triton's caches and each O3
+chain's device code under DIR, so a re-run or a resumed sweep compiles
+nothing (its summary: ``compile cache: N hits, 0 compiled``).
 """
 from __future__ import annotations
 
@@ -99,6 +110,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="device to measure: cuda[:N] (default cuda:0) or cpu")
     ch.add_argument("--force", action="store_true",
                     help="re-measure probes already in the DB")
+    ch.add_argument("--resume", action="store_true",
+                    help="skip probes already in the DB (the default; flag "
+                         "kept for explicit scripts)")
     ch.add_argument("--ops", default=None,
                     help="comma-separated op filter applied to the plan "
                          "(e.g. add,mul,clock_overhead)")
@@ -118,6 +132,16 @@ def build_parser() -> argparse.ArgumentParser:
                     help="adaptive fidelity: stop repeating a probe once its "
                          "MAD/median converges, spend the saved reps on "
                          "noisy rows (reps_eff=N in record notes)")
+    ch.add_argument("--compile-cache", default=None, metavar="DIR",
+                    help="persistent compile cache directory: Inductor's and "
+                         "Triton's caches and each O3 chain's device code live "
+                         "there, so a re-run or a resumed sweep compiles nothing")
+    ch.add_argument("--serial", action="store_true",
+                    help="disable the compile-ahead pipeline: every chain lands "
+                         "and every probe is prepared before any is timed (the "
+                         "default on the card; on the CPU each probe is timed as "
+                         "soon as it and those before it are prepared, while the "
+                         "rest compile)")
     ch.add_argument("--audit", action="store_true",
                     help="statically verify each probe's compiled code as it "
                          "is prepared (chain count, guard accounting, "
@@ -154,10 +178,14 @@ def build_parser() -> argparse.ArgumentParser:
     au.add_argument("--archs", default=None,
                     help="comma-separated arch filter for --zoo (default: all ten)")
     au.add_argument("--dataflow", action="store_true",
-                    help="with --lint: the fused kernels' dataflow certificates "
-                         "(not ported yet)")
+                    help="with --lint: also certify every kernel family from its "
+                         "compiled code: the four fused kernels (signature linear "
+                         "in the workload, no local memory), the five ALU chains, "
+                         "one op chain and both chase residencies")
     au.add_argument("--compile-cache", default=None, metavar="DIR",
-                    help="a persistent compile cache (not ported yet)")
+                    help="the compile cache the characterize run used: the O3 "
+                         "chains' device code is read from its entries instead "
+                         "of being compiled")
     au.add_argument("--attribution", default=None, metavar="PATH",
                     help="write the per-op O0->O1->O3 transform attribution "
                          "table (markdown) to PATH ('-' for stdout)")
@@ -195,6 +223,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def cmd_characterize(args: argparse.Namespace) -> int:
+    if args.force and args.resume:
+        print("error: --force and --resume are mutually exclusive", file=sys.stderr)
+        return 2
     try:
         device = resolve_device(args.device)
         plan = named_plan(args.plan)
@@ -217,13 +248,17 @@ def cmd_characterize(args: argparse.Namespace) -> int:
         return 2
     session = Session(db=db, device=device,
                       timer=Timer(warmup=args.warmup, reps=args.reps, device=device),
-                      adaptive=args.adaptive, audit=args.audit)
+                      adaptive=args.adaptive, audit=args.audit,
+                      compile_cache=args.compile_cache,
+                      pipeline=False if args.serial else None)
     print(f"plan '{plan.name}': {len(plan)} probes -> {args.db} "
           f"[{session.env['backend']}/{session.env['device_kind']}, "
           f"{session.env['jax_version']}]")
     result = session.run(plan, force=args.force)
 
     print(f"plan '{plan.name}': {result.summary()}")
+    if session.compile_cache is not None:
+        print(compile_cache_line(session.compile_cache.root, result))
     if result.cached and not result.measured and not result.failed:
         print("all probes were cache hits; pass --force to re-measure")
     for r in result.failed:
@@ -243,6 +278,24 @@ def cmd_characterize(args: argparse.Namespace) -> int:
     return 1 if result.failed else 0
 
 
+def compile_cache_line(root: str, result) -> str:
+    """What the run's compiles did, for a run with a compile cache: the
+    cache's counts, Inductor's own cache counters in this process, the
+    seconds of Inductor lowering (``GraphLowering.run``) and of preparing
+    the probes."""
+    import json
+
+    from repro_torch.core.compile_cache import inductor_counts
+    from repro_torch.core.measure import compile_phases
+
+    counts = {k: v for k, v in inductor_counts().items()
+              if "cache" in k or k.startswith(("inductor.triton_bundler", "triton."))}
+    lowering = compile_phases().get("GraphLowering.run", 0.0)
+    return (f"compile cache {root}: {result.cache_stats.hits} hits, "
+            f"{result.cache_stats.misses} compiled; inductor {json.dumps(counts, sort_keys=True)}; "
+            f"lowering {lowering:.3f} s; prepare {result.stage_ns.get('compile', 0) / 1e9:.3f} s")
+
+
 def cmd_audit(args: argparse.Namespace) -> int:
     """Static verification: lints and/or per-record audits.
 
@@ -251,11 +304,6 @@ def cmd_audit(args: argparse.Namespace) -> int:
     """
     import os
 
-    for flag in ("dataflow", "compile_cache"):
-        if getattr(args, flag):
-            print(f"error: --{flag.replace('_', '-')} is not ported yet (see ROADMAP.md)",
-                  file=sys.stderr)
-            return 2
     if not (args.db or args.lint or args.attribution):
         print("error: nothing to do: pass --db, --lint or --attribution", file=sys.stderr)
         return 2
@@ -265,7 +313,8 @@ def cmd_audit(args: argparse.Namespace) -> int:
         from repro_torch.audit import run_lints
 
         archs = [a.strip() for a in args.archs.split(",")] if args.archs else None
-        findings = run_lints(lowering=args.lowering, zoo=args.zoo, archs=archs)
+        findings = run_lints(lowering=args.lowering, zoo=args.zoo, archs=archs,
+                             dataflow=args.dataflow)
         if findings:
             print(f"{len(findings)} lint finding(s):")
             for f in findings:
@@ -273,11 +322,13 @@ def cmd_audit(args: argparse.Namespace) -> int:
             failed += len(findings)
         else:
             print("lints clean (mapping+guards" + ("+lowering" if args.lowering else "")
-                  + ("+zoo" if args.zoo else "") + ")")
+                  + ("+zoo" if args.zoo else "") + ("+dataflow" if args.dataflow else "")
+                  + ")")
 
     did_db = False
     if args.db and os.path.exists(args.db):
         from repro_torch.audit import audit_db
+        from repro_torch.core.compile_cache import CompileCache
         from repro_torch.utils import parse_kv_notes
 
         try:
@@ -286,6 +337,7 @@ def cmd_audit(args: argparse.Namespace) -> int:
             print(f"error: could not load DB {args.db}: {type(e).__name__}: {e}",
                   file=sys.stderr)
             return 2
+        cache = CompileCache(args.compile_cache) if args.compile_cache else None
         skipped = 0
         if args.plan:
             try:
@@ -300,13 +352,13 @@ def cmd_audit(args: argparse.Namespace) -> int:
                     sub.add(rec)
                 else:
                     skipped += 1
-            verdicts = audit_db(sub, recheck=args.recheck)
+            verdicts = audit_db(sub, recheck=args.recheck, cache=cache)
             for rec in sub.records():
                 kv = parse_kv_notes(rec.notes)
                 db.annotate(rec.key(), audit=kv.get("audit"),
                             audit_transform=kv.get("audit_transform"))
         else:
-            verdicts = audit_db(db, recheck=args.recheck)
+            verdicts = audit_db(db, recheck=args.recheck, cache=cache)
         db.save()
         did_db = True
         by_status: dict[str, int] = {}
@@ -326,6 +378,16 @@ def cmd_audit(args: argparse.Namespace) -> int:
             if v.status == "audited":
                 print(f"  AUDITED {v.op}@{v.opt_level}" + (f": {v.detail}" if v.detail else ""))
         failed += len(bad)
+        if cache is not None:
+            import json
+
+            from repro_torch.core.compile_cache import inductor_counts
+            from repro_torch.core.measure import compile_phases
+            counts = {k: v for k, v in inductor_counts().items()
+                      if "cache" in k or k.startswith("triton.")}
+            print(f"compile cache {cache.root}: device code read from its entries; inductor "
+                  f"{json.dumps(counts, sort_keys=True)}; lowering "
+                  f"{compile_phases().get('GraphLowering.run', 0.0):.3f} s")
     elif args.db and not args.lint and not args.attribution:
         print(f"error: DB {args.db} does not exist (nothing to audit; "
               "pass --lint for the static checks)", file=sys.stderr)

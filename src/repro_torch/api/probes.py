@@ -64,6 +64,8 @@ class ProbeContext:
                                          # counts ride in record notes
     db: LatencyDB | None = None          # the session's DB (what a serving
                                          # cell is priced against)
+    compile_cache: Any = None            # CompileCache: the O3 chains'
+                                         # compiles and their device code
 
 
 class Probe:
@@ -169,7 +171,8 @@ class InstructionProbe(Probe):
         self.category = spec.category
 
     def prepare(self, ctx: ProbeContext):
-        return measure.prepare_op(self.spec, self.opt_level, ctx.device)
+        return measure.prepare_op(self.spec, self.opt_level, ctx.device,
+                                  cache=ctx.compile_cache, env=ctx.env)
 
     def warm_tasks(self, device: torch.device) -> list[tuple[Callable, tuple]]:
         if self.opt_level != "O3" or self.spec.kernel is not None:

@@ -11,7 +11,8 @@ this module reads what the card runs.
   worker that built the chain reads both and hands them back with the
   chain's name (:func:`warm_and_read`, the compile pool's runner); the
   session files them under that name (:func:`remember`), where
-  :func:`chain_artifacts` finds them.
+  :func:`chain_artifacts` finds them; a compile cache keeps them beside
+  Inductor's (``core.compile_cache``), where a later process finds them.
 * K1-K3 are libraries that nvcc built (``kernels/_build.py``), with their
   PTX embedded beside the SASS: ``cuobjdump -ptx`` and ``-sass`` read them
   (:func:`library_ptx`, :func:`library_sass`).
@@ -471,13 +472,15 @@ def read_modules(modules: list) -> dict[str, Any]:
 def warm_and_read(fn, *args) -> dict:
     """The compile pool's runner: a warm task (``measure.warm_chain``), then
     what the audit reads of the Triton kernels that task loaded
-    (:func:`read_modules`), so that it is read once, in the worker."""
+    (:func:`read_modules`), so that it is read once, in the worker (a task
+    that went through a compile cache brings it already)."""
     started = time.time()
     before = {id(m) for m in loaded_inductor_modules()}
     result = fn(*args)
-    return {**result, **read_modules([m for m in loaded_inductor_modules()
-                                      if id(m) not in before]),
-            "started_at": started, "done_at": time.time()}
+    if "ptx" not in result:
+        result = {**result, **read_modules([m for m in loaded_inductor_modules()
+                                            if id(m) not in before])}
+    return {**result, "started_at": started, "done_at": time.time()}
 
 
 # the device code of each chain a compile worker built, by its chain name
@@ -486,15 +489,33 @@ _CHAINS: dict[str, dict[str, Any]] = {}
 
 
 def remember(name: str, found: dict[str, Any]) -> None:
-    """File a chain's device code (:func:`read_modules`' fields) under its
-    name."""
+    """File what a compile worker handed back for a chain (its device code,
+    :func:`read_modules`' fields, where it read it; its module) under the
+    chain's name."""
     _CHAINS[name] = found
 
 
-def chain_artifacts(name: str) -> dict[str, Any] | None:
-    """The device code of chain ``name``, or None when no compile worker
-    handed this process any for it."""
+def compiled_chain(name: str) -> dict[str, Any] | None:
+    """What a compile worker handed this process for chain ``name`` (its
+    result: the module it compiled, ``"module"``, and the chain's result,
+    ``"out"``, and its device code where it read it), or None."""
     return _CHAINS.get(name)
+
+
+def chain_artifacts(name: str, cache: Any = None, key: tuple | None = None
+                    ) -> dict[str, Any] | None:
+    """The device code of chain ``name``: what a compile worker handed this
+    process or this process compiled, else what compile cache ``cache``
+    keeps under ``key`` (``measure.chain_cache_key``); None when neither
+    has any."""
+    found = _CHAINS.get(name)
+    if found is not None and "ptx" not in found:
+        found = None
+    if found is None and cache is not None and key is not None:
+        found = cache.peek_extra(key) or None
+        if found is not None and "ptx" not in found:
+            found = None
+    return found
 
 
 # ------------------------------------------------------------ K1-K3 libraries

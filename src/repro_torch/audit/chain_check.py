@@ -434,8 +434,10 @@ def o1_graph_ops(spec: OpSpec, n: int) -> Counter:
 
 
 def audit_spec(spec: OpSpec, opt_level: str, *, env: Mapping[str, str] | None = None,
-               lens: tuple[int, int] | None = None) -> ChainVerdict:
-    """Full chain-integrity check of one registry spec at one opt level."""
+               lens: tuple[int, int] | None = None, cache=None) -> ChainVerdict:
+    """Full chain-integrity check of one registry spec at one opt level. An
+    O3 chain's device code is what this process holds, else what compile
+    cache ``cache`` keeps for it (``core.compile_cache``)."""
     n1, n2 = lens if lens is not None else chain_lens(spec, opt_level)
     if opt_level in ("O0", "O1"):
         return _audit_spec_aten(spec, opt_level, (n1, n2))
@@ -455,7 +457,10 @@ def audit_spec(spec: OpSpec, opt_level: str, *, env: Mapping[str, str] | None = 
         return missing
     if spec.kernel is not None:
         return _audit_kernel_row(spec, exp)
-    found = [artifacts.chain_artifacts(measure.chain_name(spec.name, n)) for n in (n1, n2)]
+    found = [artifacts.chain_artifacts(
+        measure.chain_name(spec.name, n), cache,
+        measure.chain_cache_key(spec, n, opt_level, env) if env is not None else None)
+        for n in (n1, n2)]
     if None in found:
         return ChainVerdict(spec.name, opt_level, "unaudited", cause="artifact-missing",
                             detail=f"no compile worker handed this process the Triton "
@@ -773,15 +778,15 @@ _INKERNEL_OP_RE = re.compile(
 
 def _audit_kernel_row_family(op: str, opt_level: str, env: Mapping[str, str] | None,
                              registry: Iterable[OpSpec] | None) -> ChainVerdict:
-    """Route an ``inkernel.*`` row to the dataflow auditor (K2's or K3's
-    timed form opened and certified); the fused rows wait for the fused
-    half of the dataflow audit."""
+    """Route an ``inkernel.*`` row to the dataflow auditor: K2's or K3's
+    timed form opened and certified, a fused row's signature and residency
+    (``dataflow.audit_fused``)."""
     from repro_torch.audit import dataflow
 
     m = _FUSED_RE.match(op)
     if m:
-        return ChainVerdict(op, opt_level, "unaudited", cause="fused-signature-not-ported",
-                            detail="the fused half of the dataflow audit is not ported yet")
+        lens = (int(m.group(2)), int(m.group(3))) if m.group(2) else None
+        return dataflow.audit_fused(m.group(1), opt_level, op=op, lens=lens, env=env)
     missing = _no_device_code(op, opt_level, env)
     if missing is not None:
         return missing
@@ -803,11 +808,12 @@ def _audit_kernel_row_family(op: str, opt_level: str, env: Mapping[str, str] | N
 
 
 def audit_target(op: str, opt_level: str, *, env: Mapping[str, str] | None = None,
-                 registry: Iterable[OpSpec] | None = None) -> ChainVerdict:
+                 registry: Iterable[OpSpec] | None = None, cache=None) -> ChainVerdict:
     """Audit whatever artifact the record row ``op@opt_level`` was measured
     from. Rows no static checker covers come back ``unaudited`` with a
     reason, never silently ``ok``. ``env`` is the environment the row was
-    measured in (its backend decides whether device code exists)."""
+    measured in (its backend decides whether device code exists); ``cache``
+    a compile cache whose entries hold the O3 chains' device code."""
     if op == "clock_overhead":
         return audit_clock_overhead(opt_level)
     m = _MEM_RE.match(op)
@@ -831,5 +837,5 @@ def audit_target(op: str, opt_level: str, *, env: Mapping[str, str] | None = Non
     specs = list(registry) if registry is not None else default_registry()
     spec = next((s for s in specs if s.name == op), None)
     if spec is not None:
-        return audit_spec(spec, opt_level, env=env)
+        return audit_spec(spec, opt_level, env=env, cache=cache)
     return ChainVerdict(op, opt_level, "unaudited", cause="unknown-family")

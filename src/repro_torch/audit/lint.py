@@ -27,12 +27,21 @@
   recipe: batch 2, sequence 32, [3, B, S] positions under M-RoPE, frames
   of S / 4 for the encoder-decoder.
 
-``lint_dataflow`` waits for the fused half of ``audit/dataflow.py``:
-:func:`run_lints` raises for ``dataflow``.
+* **dataflow** — every kernel family certified from its compiled code by
+  :mod:`repro_torch.audit.dataflow`, as the JAX package's lint does: the
+  four fused kernels (signature linear in the workload, no local memory),
+  the five ALU chains (K1), one op chain (K2's ``add.float32``) and both
+  chase residencies (K3's ``smem`` and
+  ``global``, the JAX package's ``vmem`` and ``any``). Where this process
+  has no device code (the CPU, or no ``cuobjdump``) a family's verdict is
+  ``unaudited:no-device-code`` or ``no-toolchain`` and is skipped, not
+  failed, as the lowering lint skips an O3 chain it has no code for; the
+  fused kernels' signatures are checked all the same.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from collections import Counter
 from typing import Iterable
 
@@ -285,20 +294,57 @@ def lint_zoo(archs: Iterable[str] | None = None) -> list[LintFinding]:
     return findings
 
 
+# the K3 rung the dataflow lint certifies in each space (the JAX lint's 8 KiB)
+DATAFLOW_RING = 8192
+# the verdicts that say a family has no device code here, not that it failed
+NO_CODE = ("no-device-code", "no-toolchain")
+
+
+def lint_dataflow(env=None) -> list[LintFinding]:
+    """Certify every kernel family from its compiled code (see the module
+    docstring): the four fused kernels, the five ALU chains, the ``add``
+    op chain and the chase in both spaces. ``env`` is the environment whose
+    code is read (default this process's card, else the CPU)."""
+    from repro_torch.audit import dataflow
+    from repro_torch.audit.chain_check import _no_device_code
+    from repro_torch.core.chains import spec_by_name
+    from repro_torch.core.latency_db import current_environment
+    from repro_torch.inkernel import FUSED_KERNELS
+
+    if env is None:
+        env = current_environment("cuda:0" if torch.cuda.is_available() else "cpu")
+    findings = []
+
+    def check(v) -> None:
+        if not v.ok and not (v.status == "unaudited" and v.cause in NO_CODE):
+            findings.append(LintFinding(
+                "dataflow", f"{v.op}@{v.opt_level}",
+                f"{v.status}:{v.cause}" + (f" — {v.detail}" if v.detail else "")))
+
+    for name in FUSED_KERNELS:
+        check(dataflow.audit_fused(name, env=env))
+    kernels = [(f"kernel.alu_chain.{op}", functools.partial(dataflow.audit_alu_kernel, op, "O3"))
+               for op in dataflow.ALU_OPS]
+    kernels.append(("inkernel.add.float32", functools.partial(
+        dataflow.audit_inkernel_op, spec_by_name("add.float32"), "O3")))
+    for space in ("smem", "global"):
+        kernels.append((f"inkernel.mem.{DATAFLOW_RING}.{space}", functools.partial(
+            dataflow.audit_inkernel_mem, DATAFLOW_RING, "O3", space=space)))
+    for op, audit in kernels:
+        check(_no_device_code(op, "O3", env) or audit(op=op))
+    return findings
+
+
 def run_lints(lowering: bool = False, zoo: bool = False,
               archs: Iterable[str] | None = None,
               dataflow: bool = False) -> list[LintFinding]:
-    """All ported static lints. The table mapping and guard identity always
-    run; ``lowering`` and ``zoo`` opt into the slower (device-free but for
-    the O3 PTX the process holds) sets. ``dataflow`` is not ported yet and
-    raises."""
-    if dataflow:
-        raise NotImplementedError(
-            "lint dataflow is not ported yet (it waits for the fused half of "
-            "audit/dataflow.py; see ROADMAP.md)")
+    """All static lints. The table mapping and guard identity always run;
+    ``lowering``, ``zoo`` and ``dataflow`` opt into the slower sets."""
     findings = lint_table_mapping() + lint_guard_identity()
     if lowering:
         findings += lint_registry_lowering()
     if zoo:
         findings += lint_zoo(archs)
+    if dataflow:
+        findings += lint_dataflow()
     return findings

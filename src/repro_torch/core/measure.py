@@ -9,21 +9,28 @@ The measurement is split in two, as in the JAX package:
 * :func:`run_prepared_op` does everything device-bound: the two-length
   :meth:`Timer.slope` over the prepared callables.
 
-The split lets the session's compile-ahead thread prepare probe N+1 while
-probe N times. :func:`warm_chain` is the same compile run in a worker
-process, which fills Inductor's on-disk cache so the in-process compile of
-the same chain is a cache load.
+The split lets the session time probe N while its compile workers build
+the chains of the probes after it. :func:`warm_chain` is the same compile
+run in a worker process, which fills Inductor's on-disk cache so the
+in-process compile of the same chain is a cache load; the session then
+runs the chain from the module the worker compiled (:func:`load_chain`,
+:func:`compiled_module`). With a
+:class:`~repro_torch.core.compile_cache.CompileCache` an O3 Inductor chain
+goes through the cache, keyed by :func:`chain_cache_key`, and its entry
+keeps what the audit reads of it and the module it runs from.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
-from typing import Any, Callable
+from typing import Any, Callable, Mapping
 
 import torch
 
 from repro_torch.core import chains
 from repro_torch.core.chains import OpSpec, chain_fn, kernel_chain_fn
+from repro_torch.core.compile_cache import ROOT_ENV, CompileCache, fidelity_key
 from repro_torch.core.optlevels import compile_at_level
 from repro_torch.core.timing import Measurement, Timer
 from repro_torch.kernels import ops
@@ -194,9 +201,148 @@ def prepare_o1_chain(name: str, n: int, device: str) -> None:
         _first_call(fn, *args)
 
 
-def _first_call(fn: Callable[..., Any], *args: Any) -> None:
-    """Run ``fn`` once, so that it compiles or builds now, and wait for it."""
-    block(fn(*args))
+def _first_call(fn: Callable[..., Any], *args: Any) -> Any:
+    """Run ``fn`` once, so that it compiles or builds now, wait for it and
+    return its result."""
+    out = fn(*args)
+    block(out)
+    return out
+
+
+def cacheable(spec: OpSpec, opt_level: str) -> bool:
+    """Whether ``spec``'s chain at ``opt_level`` goes through a compile
+    cache: the Inductor chains of O3 (O0 compiles nothing, O1 compiles in
+    seconds and keeps no device code, and K2's chains are nvcc's build)."""
+    return opt_level == "O3" and spec.kernel is None
+
+
+def chain_cache_key(spec: OpSpec, n: int, opt_level: str, env: Mapping[str, str]) -> tuple:
+    """The :class:`CompileCache` key of one chain compile, shared with the
+    audit (``audit --compile-cache`` reads the chain's device code under
+    it)."""
+    return fidelity_key(env, spec.name, opt_level, spec.dtype, f"chain{n}")
+
+
+def _device_code(device: torch.device, before: set[int]) -> dict[str, Any]:
+    """What the audit and a later load read of the Inductor modules loaded
+    since ``before`` (ids of ``artifacts.loaded_inductor_modules``): their
+    Triton kernels' device code on the card (nothing on the CPU), and the
+    compiled wrapper module (``"module"``, :func:`compiled_module`)."""
+    from repro_torch.audit import artifacts
+
+    new = [m for m in artifacts.loaded_inductor_modules() if id(m) not in before]
+    code = (artifacts.read_modules(new) if device.type == "cuda"
+            else {"ptx": [], "carry": {}, "sass": {}, "cubins": 0})
+    module = _wrapper_module(new)
+    if module is not None:
+        code["module"] = module
+    return code
+
+
+def _wrapper_module(modules: list) -> dict[str, str] | None:
+    """The compiled wrapper module among Inductor's ``modules`` (the one
+    whose ``call`` runs the chain): its key and its path under Inductor's
+    cache directory (:func:`compiled_module`'s ``info``)."""
+    from torch._inductor.runtime.cache_dir_utils import cache_dir
+
+    wrapper = next((m for m in modules if callable(getattr(m, "call", None))
+                    and getattr(m, "__file__", None)), None)
+    if wrapper is None:
+        return None
+    path = os.path.relpath(wrapper.__file__, cache_dir())
+    return {"key": getattr(wrapper, "key", None)
+            or os.path.splitext(os.path.basename(wrapper.__file__))[0],
+            "path": wrapper.__file__ if path.startswith("..") else path}
+
+
+def compiled_module(info: Mapping[str, str]) -> Callable[..., Any] | None:
+    """The chain that Inductor compiled into the wrapper module ``info``
+    names (``{"key", "path"}``, the path under Inductor's cache directory),
+    loaded from Inductor's code cache with no trace and no compile: what a
+    chain's ``torch.compile`` serves on a cache hit, without Dynamo's and
+    AOTAutograd's tracing of the chain again (1-5 s a 512-op chain beside
+    the compile workers). The callable takes the chain's arguments and
+    returns its result; None when the module is not there."""
+    from torch._inductor import config
+    from torch._inductor.codecache import PyCodeCache
+    from torch._inductor.runtime.cache_dir_utils import cache_dir
+
+    path = os.path.join(cache_dir(), info["path"])  # an absolute path stays itself
+    if not os.path.exists(path):
+        return None
+    try:
+        with config.patch(compile_threads=1):  # its Triton kernels load here
+            call = PyCodeCache.load_by_key_path(info["key"], path).call
+    except Exception as e:  # noqa: BLE001 - the chain compiles instead
+        logger.debug("compiled module %s did not load: %s: %s", path, type(e).__name__, e)
+        return None
+
+    def chain(*args: torch.Tensor) -> torch.Tensor:
+        return call(list(args))[0]
+    return chain
+
+
+def _same(out: Any, want: Any) -> bool:
+    """Whether a chain's result equals ``want`` (a Python number; NaN
+    equals NaN)."""
+    got = out.item()
+    return got == want or (got != got and want != want)
+
+
+def load_chain(spec: OpSpec, n: int, opt_level: str, device: torch.device, args: tuple,
+               cache: CompileCache | None = None, env: Mapping[str, str] | None = None,
+               count: bool = True) -> tuple[Callable[..., Any], Any, bool | None]:
+    """Chain ``spec`` of length ``n`` at ``opt_level`` on ``device``, run once
+    on ``args``: ``(its callable, its result, whether it was a compile cache
+    hit)`` (None without a cache or for a chain no cache keeps).
+
+    An O3 Inductor chain that a compile worker of this run built (its
+    result filed by ``artifacts.remember``), or that ``cache`` keeps, runs
+    from the wrapper module Inductor compiled (:func:`compiled_module`),
+    once its result equals the one recorded beside it; any other chain
+    compiles here (``torch.compile``, through ``cache``: its entry keeps the
+    chain's device code and its module). A chain served from the cache's
+    entry is a hit; one compiled is a miss; one a worker built counts as
+    the worker's lookup (``CompileCache.note``). With ``count`` False the
+    cache is only read: nothing is counted or stored (a session's guard
+    baseline, which is no probe of the plan)."""
+    from repro_torch.audit import artifacts
+
+    name = chain_name(spec.name, n)
+    key = (chain_cache_key(spec, n, opt_level, env)
+           if cache is not None and env is not None and cacheable(spec, opt_level) else None)
+    if cacheable(spec, opt_level):
+        worker = artifacts.compiled_chain(name)
+        entry = cache.peek_extra(key) if key is not None else None
+        for found in (entry, worker):
+            fn = compiled_module(found["module"]) if found and found.get("module") else None
+            if fn is None:
+                continue
+            out = _first_call(fn, *args)
+            if not _same(out, found.get("out")):
+                logger.warning("%s: its compiled module gave %r, its compile %r; compiling it "
+                               "here", name, out.item(), found.get("out"))
+                if found is entry and count:
+                    cache.discard(key)  # stale: the compile below stores it anew
+                continue
+            hit = None
+            if key is not None and count:
+                hit = cache.served(key, entry_read=found is entry)
+                if found is worker and entry is None:
+                    cache.store(key, dict(worker))
+            if found is entry and device.type == "cuda":
+                artifacts.remember(name, entry)
+            return fn, out, hit
+    fn = compile_chain(spec, n, opt_level, device)
+    if key is None or not count:
+        return fn, _first_call(fn, *args), None
+    before = {id(m) for m in artifacts.loaded_inductor_modules()}
+    out, code, hit = cache.load_or_compile(
+        key, lambda: _first_call(fn, *args),
+        extra=lambda out: {**_device_code(device, before), "out": out.item()})
+    if code is not None and device.type == "cuda":
+        artifacts.remember(name, code)
+    return fn, out, hit
 
 
 @dataclasses.dataclass
@@ -213,24 +359,35 @@ class PreparedOp:
     operands: tuple
     device: torch.device
     _fns: dict[int, Callable]
+    _cache: CompileCache | None = None
+    _env: Mapping[str, str] | None = None
+    _count: bool = True
 
     def fn_by_len(self, n: int) -> Callable:
         """Memoized chain callable, compiled at first use (the widened retry
-        length compiles lazily)."""
+        length compiles lazily), through the compile cache if there is one."""
         if n not in self._fns:
-            t0 = time.perf_counter()
-            fn = compile_chain(self.spec, n, self.opt_level, self.device)
-            _first_call(fn, self.carry, *self.operands)
-            logger.debug("compiled %s@%s n=%d in %.2f s", self.spec.name,
-                         self.opt_level, n, time.perf_counter() - t0)
+            t0, before = time.perf_counter(), compile_phases()
+            fn, _, _ = load_chain(self.spec, n, self.opt_level, self.device,
+                                  (self.carry, *self.operands), self._cache, self._env,
+                                  self._count)
+            moved = sorted(((v - before.get(k, 0.0), k) for k, v in compile_phases().items()
+                            if v - before.get(k, 0.0) > 0.05), reverse=True)
+            logger.debug("compiled %s@%s n=%d in %.2f s (%s)", self.spec.name,
+                         self.opt_level, n, time.perf_counter() - t0,
+                         ", ".join(f"{k} {v:.2f}" for v, k in moved[:6]))
             self._fns[n] = fn
         return self._fns[n]
 
 
 def prepare_op(spec: OpSpec, opt_level: str = "O3",
-               device: str | torch.device | None = None) -> PreparedOp:
+               device: str | torch.device | None = None,
+               cache: CompileCache | None = None,
+               env: Mapping[str, str] | None = None, count: bool = True) -> PreparedOp:
     """Build and compile the two chain callables for ``spec`` on ``device``
-    (default ``cuda:0``, see ``resolve_device``); no timing."""
+    (default ``cuda:0``, see ``resolve_device``), through ``cache`` (keyed
+    by ``env``; ``count`` as :func:`load_chain` takes it) where given; no
+    timing."""
     device = resolve_device(device)
     n1, n2 = _CHAIN_LENS[opt_level]
     if spec.max_chain is not None:
@@ -246,7 +403,7 @@ def prepare_op(spec: OpSpec, opt_level: str = "O3",
                           retry_lens=retry,
                           reps=_REPS[opt_level], carry=spec.carry(device),
                           operands=spec.operand_tensors(device), device=device,
-                          _fns={})
+                          _fns={}, _cache=cache, _env=env, _count=count)
     prepared.fn_by_len(n1)
     prepared.fn_by_len(n2)
     return prepared
@@ -282,14 +439,36 @@ def warm_chain(name: str, opt_level: str, n: int, device: str) -> dict[str, Any]
     (``"chain"``, :func:`chain_name`), the seconds it took (``"s"``), the
     seconds of each compile phase that moved (``"phases"``, from
     :func:`compile_phases`) and the chain's result (``"out"``, a Python
-    number)."""
+    number) and, for an O3 Inductor chain, the wrapper module Inductor
+    compiled (``"module"``, which the session loads the chain from). In a
+    worker of a compile cache's pool (``compile_cache.ROOT_ENV`` set) the
+    compile goes through that cache (:func:`load_chain`): the result also
+    holds the entry's key (``"cache_key"``), whether it was a hit
+    (``"cache_hit"``) and the entry (the chain's device code,
+    ``audit.artifacts.read_modules``' fields, and its module)."""
+    from repro_torch.audit import artifacts
+    from repro_torch.core.latency_db import current_environment
+
     before = compile_phases()
     t0 = time.perf_counter()
     spec = chains.spec_by_name(name)
-    fn = compile_chain(spec, n, opt_level, device)
-    out = fn(spec.carry(device), *spec.operand_tensors(device))
-    block(out)
+    args = (spec.carry(device), *spec.operand_tensors(device))
+    root = os.environ.get(ROOT_ENV)
+    cache = CompileCache(root) if root else None
+    env = current_environment(device) if cache is not None else None
+    loaded = {id(m) for m in artifacts.loaded_inductor_modules()}
+    fn, out, hit = load_chain(spec, n, opt_level, torch.device(device), args, cache, env)
     seconds = time.perf_counter() - t0
     phases = {k: v - before.get(k, 0.0) for k, v in compile_phases().items()}
-    return {"chain": chain_name(name, n), "s": seconds,
-            "phases": {k: v for k, v in phases.items() if v > 0.0}, "out": out.item()}
+    result = {"chain": chain_name(name, n), "s": seconds,
+              "phases": {k: v for k, v in phases.items() if v > 0.0}, "out": out.item()}
+    if hit is not None:
+        entry = cache.peek_extra(chain_cache_key(spec, n, opt_level, env)) or {}
+        result.update(entry, cache_key=list(chain_cache_key(spec, n, opt_level, env)),
+                      cache_hit=hit)
+    elif cacheable(spec, opt_level):
+        module = _wrapper_module([m for m in artifacts.loaded_inductor_modules()
+                                  if id(m) not in loaded])
+        if module is not None:
+            result["module"] = module
+    return result

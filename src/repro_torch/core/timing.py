@@ -55,6 +55,9 @@ from repro_torch.utils import block
 _LEAD_CYCLES_PER_NS = 2.0
 _MIN_LEAD_NS = 50_000
 _MAX_LEAD_NS = 100_000_000
+# enqueues in a row longer than the longest lead covers, before a region is
+# declared untimeable on the card's clock
+_SLOW_ENQUEUES = 3
 
 
 class NoisySlopeError(RuntimeError):
@@ -184,7 +187,7 @@ class Timer:
         self.device = resolve_device(device)
         self.adaptive = adaptive
         self._rep_bank = 0
-        self._lead_ns = _MIN_LEAD_NS  # grows to fit the slowest region seen
+        self._lead_ns = _MIN_LEAD_NS  # grows to fit a slow region, then decays
 
     @property
     def clock(self) -> str:
@@ -218,6 +221,7 @@ class Timer:
             end = torch.cuda.Event(enable_timing=True)
 
             def sample(fn: Callable[..., Any], *args: Any) -> float:
+                too_slow = 0
                 while True:
                     torch.cuda._sleep(int(self._lead_ns * _LEAD_CYCLES_PER_NS))
                     t0 = time.perf_counter_ns()
@@ -227,15 +231,24 @@ class Timer:
                     queued_ns = time.perf_counter_ns() - t0
                     end.synchronize()
                     if 2 * queued_ns < self._lead_ns:
+                        # a lead grown for one slow enqueue (the host busy
+                        # elsewhere) halves back toward what this region needs
+                        self._lead_ns = max(_MIN_LEAD_NS, 4 * queued_ns, self._lead_ns // 2)
                         return start.elapsed_time(end) * 1e6  # ms -> ns
                     # the card may have run dry before the region was queued
                     # (then the sample timed the host): take it again behind
                     # a longer lead
                     if 4 * queued_ns > _MAX_LEAD_NS:
-                        raise RuntimeError(
-                            f"the timed region took {queued_ns / 1e6:.1f} ms to "
-                            "enqueue (or waits for the card inside): it cannot "
-                            "be timed on the card's clock")
+                        # once may be the host's scheduler (this process
+                        # descheduled mid-enqueue); three times is the region
+                        too_slow += 1
+                        if too_slow == _SLOW_ENQUEUES:
+                            raise RuntimeError(
+                                f"the timed region took {queued_ns / 1e6:.1f} ms to "
+                                "enqueue (or waits for the card inside): it cannot "
+                                "be timed on the card's clock")
+                        self._lead_ns = _MAX_LEAD_NS
+                        continue
                     self._lead_ns = 4 * queued_ns
             return sample
 

@@ -910,3 +910,61 @@ def test_slo_plan_measures_a_point_on_the_card(dev, tmp_path, monkeypatch):
     pred, meas, _ = probe.last_result
     assert meas.n_tokens == pred.n_tokens == sum(
         r.max_new for r in generate_trace(probe.trace_config()))
+
+
+def test_fused_rows_are_audited_from_their_instances_sass(dev, tmp_path):
+    """The fused plan's four rows, audited on the card: each signature linear
+    in its workload and the instances its unit workload launches free of
+    local memory (their SASS and ptxas's report), ``unit_bytes`` as its
+    notes; causal self-attention is rejected as non-linear."""
+    from repro_torch.audit import audit_target, dataflow
+    from repro_torch.core.latency_db import current_environment
+    from repro_torch.utils import parse_kv_notes
+
+    env = current_environment(dev)
+    result = Session(db=str(tmp_path / "db.json"), device=dev, timer=Timer(device=dev),
+                     audit=True).run(Plan.fused())
+    for probe in Plan.fused():
+        v = audit_target(probe.op, "O3", env=env)
+        assert v.status == "audited", v
+        assert dataflow.fused_instances(probe.name)
+        rec = result.db.get(probe.key(env))
+        if rec is not None:  # rmsnorm may end as a NoisySlopeError
+            notes = parse_kv_notes(rec.notes)
+            assert notes["audit"] == "audited"
+            assert notes["unit_bytes"] == parse_kv_notes(v.detail)["unit_bytes"]
+    control = dataflow.audit_fused("flash_attention", overrides={"causal": True},
+                                   query_grows=True, env=env)
+    assert control.status == "transformed" and control.cause.startswith("nonlinear-")
+
+
+def test_a_warm_characterize_process_compiles_nothing(dev, tmp_path):
+    """``characterize --compile-cache`` twice in fresh processes: the first
+    compiles the two rows' four chains in its workers, the second loads them
+    all (``0 compiled``) with no Inductor miss, no lowering and no Triton
+    compile that missed Triton's cache."""
+    import os
+    import re
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    cache = tmp_path / "cc"
+    args = [sys.executable, "-m", "repro_torch", "characterize", "--plan", "quick",
+            "--opt-levels", "O3", "--ops", "add,mul", "--force", "--db",
+            str(tmp_path / "db.json"), "--compile-cache", str(cache)]
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    cold = subprocess.run(args, capture_output=True, text=True, env=env, timeout=900)
+    assert cold.returncode == 0, cold.stderr[-2000:]
+    assert "compile cache: 0 hits, 4 compiled" in cold.stdout
+    warm = subprocess.run(args, capture_output=True, text=True, env=env, timeout=900)
+    assert warm.returncode == 0, warm.stderr[-2000:]
+    assert "compile cache: 4 hits, 0 compiled" in warm.stdout
+    line = re.search(r"inductor (\{.*?\}); lowering ([\d.]+) s", warm.stdout)
+    counts = json.loads(line[1])
+    # (async_compile_cache_miss is Inductor's in-process table of kernels)
+    for k in ("inductor.fxgraph_cache_miss", "aot_autograd.autograd_cache_miss"):
+        assert not counts.get(k), counts
+    assert float(line[2]) == 0.0
+    assert counts.get("triton.compile_cache_miss", 1) == 0

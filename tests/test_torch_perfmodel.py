@@ -500,8 +500,8 @@ def test_lint_zoo_catches_an_unlisted_op(monkeypatch):
     found = lint.lint_zoo(["granite-3-8b"])
     assert [f.subject for f in found] == ["granite-3-8b"]
     assert "'where'" in found[0].message
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        lint.run_lints(dataflow=True)
+    # the dataflow lint, once not ported, runs beside it (the zoo off)
+    assert lint.run_lints(dataflow=True) == []
 
 
 def test_zoo_records_hold_the_kernel_sites():
